@@ -1,10 +1,10 @@
-"""mesh_to_sdf_tpu — a TPU-native, differentiable mesh→SDF framework.
+"""mesh_to_sdf_tpu — a differentiable mesh→SDF framework in JAX.
 
 Brand-new JAX/Pallas re-design with the capabilities of the reference Rust
 crate `Azkellas/mesh_to_sdf` (see SURVEY.md): signed distance fields at
 arbitrary query points (`generate_sdf`) or on regular grids
 (`generate_grid_sdf`), raycast/normal sign methods, versioned serialization,
-glTF ingestion, offline raymarch rendering — plus new TPU-first capabilities:
+glTF ingestion, offline raymarch rendering — plus new capabilities:
 vertex gradients via custom VJP and multi-chip sharding over device meshes.
 """
 from .grid import Grid

@@ -54,8 +54,8 @@ def cmd_generate(args) -> int:
     from .utils.profiling import PhaseTimer
 
     if args.distributed:
-        # Multi-host wiring (SURVEY §2.3 DCN note): every process runs the
-        # same command; jax.distributed stitches the pod together. Launch
+        # Multi-host wiring (SURVEY §2.3): every process runs the same
+        # command; jax.distributed stitches the hosts together. Launch
         # recipe (2 hosts):
         #   host0: m2s generate in.glb -o out.bin --distributed \
         #            --coordinator host0:1234 --num-processes 2 --process-id 0
@@ -257,7 +257,7 @@ def cmd_bench(args) -> int:
 
     if args.scaling:
         # Weak-scaling efficiency across all visible devices (BASELINE
-        # north star: ≥80% at 1→N). One command per host on a pod.
+        # north star: ≥80% at 1→N). One command per host on a cluster.
         if args.distributed:
             from .parallel.mesh import initialize_distributed
 
@@ -356,7 +356,7 @@ def main(argv=None) -> int:
     )
     g.add_argument(
         "--distributed", action="store_true",
-        help="initialize jax.distributed for multi-host pods (see "
+        help="initialize jax.distributed for multi-host clusters (see "
              "--coordinator / --num-processes / --process-id)",
     )
     g.add_argument("--coordinator", default=None,
@@ -412,8 +412,8 @@ def main(argv=None) -> int:
     b.add_argument(
         "--scaling", action="store_true",
         help="measure weak-scaling efficiency across all visible devices "
-             "(grid nx grows with device count; ≥80%% is the north star). "
-             "Combine with --distributed on multi-host pods.",
+             "(grid nx grows with device count). Combine with --distributed "
+             "on multi-host clusters.",
     )
     b.add_argument(
         "--distributed", action="store_true",
@@ -425,6 +425,10 @@ def main(argv=None) -> int:
     b.set_defaults(fn=cmd_bench)
 
     args = p.parse_args(argv)
+    if args.command in ("generate", "bench"):
+        from .utils.compile_cache import configure_compile_cache
+
+        configure_compile_cache()
     return args.fn(args)
 
 

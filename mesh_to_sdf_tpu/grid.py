@@ -1,6 +1,6 @@
 """Regular 3-D grid abstraction.
 
-TPU-native re-design of the reference ``Grid`` (`mesh_to_sdf/src/grid.rs:30-173`):
+Array re-design of the reference ``Grid`` (`mesh_to_sdf/src/grid.rs:30-173`):
 - ``cell_count`` is static (Python ints) so every array shape is known to XLA.
 - ``first_cell`` / ``cell_size`` are JAX arrays (differentiable, shardable).
 - The flattened cell index is x-major / z-fastest

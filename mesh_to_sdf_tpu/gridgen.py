@@ -1,10 +1,10 @@
 """`generate_grid_sdf` — signed distance field on a regular grid.
 
 Capability parity with the reference flagship (`mesh_to_sdf/src/generate/grid.rs:265-378`),
-re-designed TPU-first. The reference's three CPU phases map as:
+re-designed for arrays. The reference's three CPU phases map as:
 
 =====================================  =========================================
-reference (grid.rs)                    TPU-native
+reference (grid.rs)                    here
 =====================================  =========================================
 preheap: per-triangle AABB rasterize   (subsumed) dense/tiled min over triangle
   + RwLock min (`grid.rs:383-456`)       blocks — exact by construction
@@ -31,25 +31,21 @@ from .topology import Topology
 from .types import AccelerationMethod, SignMethod, Strategy
 import functools
 
-from .ops import brute, raycast
+from .ops import brute, dense, raycast
 from .ops import raycast as raycast_mod
 from .query import prepare_triangles, _resolve
 
 #: AUTO-strategy cost model: dense-engine pair throughput, CPT fixed
-#: overhead, CPT cell throughput. Per-backend defaults (TPU numbers are v5e
-#: measurements, BENCH.md; CPU numbers are coarse single-core XLA scale);
-#: overridable by env (M2S_AUTO_DENSE_PAIRS_PER_S / M2S_AUTO_CPT_OVERHEAD_S
-#: / M2S_AUTO_CPT_CELLS_PER_S) or by a cached one-shot on-device
-#: calibration (:func:`calibrate_auto`, opt-in via M2S_AUTO_CALIBRATE=1) —
-#: so the crossover survives TPU generations other than v5e.
+#: overhead, CPT cell throughput, per backend. The "gpu" entry is
+#: ``calibrate_auto(force=True)`` on an NVIDIA H100 (CHANGES.md); the "cpu"
+#: entry is a coarse single-core XLA scale. Overridable by env
+#: (M2S_AUTO_DENSE_PAIRS_PER_S / M2S_AUTO_CPT_OVERHEAD_S /
+#: M2S_AUTO_CPT_CELLS_PER_S) or by a cached one-shot on-device calibration
+#: (:func:`calibrate_auto`, opt-in via M2S_AUTO_CALIBRATE=1).
 _AUTO_DEFAULTS = {
-    "tpu": (5.0e10, 0.15, 2.0e8),
+    "gpu": (1.1915277e10, 0.03942356, 1.5753921e7),
     "cpu": (2.0e8, 0.05, 5.0e6),
 }
-#: Backward-compat module constants (v5e) — prefer :func:`_auto_constants`.
-AUTO_DENSE_PAIRS_PER_S = 5.0e10
-AUTO_CPT_OVERHEAD_S = 0.15
-AUTO_CPT_CELLS_PER_S = 2.0e8
 
 _AUTO_CAL_CACHE: dict = {}
 
@@ -102,9 +98,7 @@ def calibrate_auto(force: bool = False):
     topo = Topology.triangle_list(f.reshape(-1))
     n_t = len(f)
     lo, hi = v.min(axis=0) - 0.3, v.max(axis=0) + 0.3
-    dense_strategy = (
-        Strategy.PALLAS if jax.default_backend() == "tpu" else Strategy.XLA
-    )
+    dense_strategy = dense.dense_strategy()
 
     def timed(strategy, cells):
         g = Grid.from_bounding_box(lo, hi, [cells] * 3)
@@ -148,7 +142,9 @@ def _auto_constants():
     import os
 
     backend = jax.default_backend()
-    base = _AUTO_DEFAULTS.get(backend, _AUTO_DEFAULTS["cpu"])
+    if backend not in _AUTO_DEFAULTS:
+        raise RuntimeError(f"no AUTO cost constants for platform {backend!r}")
+    base = _AUTO_DEFAULTS[backend]
     if os.environ.get("M2S_AUTO_CALIBRATE") == "1":
         try:
             base = calibrate_auto()
@@ -173,14 +169,10 @@ _CPT_PREP_CACHE_MAX = 4
 
 
 def _cpt_prep(grid: Grid, ha, hb, hc):
-    """(stacked device soup (3,T,3), device SeedBins, per-axis LineBins) —
-    cached by content. LineBins route each 32×32-line parity tile to only
-    the triangle blocks whose transverse AABB overlaps it (exact; built on
-    the ORIGINAL soup — parity is subdivision-invariant)."""
+    """(stacked device soup (3,T,3), device SeedBins) — cached by content."""
     import zlib
 
     from .ops import cpt as cpt_mod
-    from .ops.kernels import pallas_parity
 
     cs = float(np.max(np.abs(np.asarray(grid.cell_size))))
     max_edge = 8.0 * cs
@@ -208,12 +200,6 @@ def _cpt_prep(grid: Grid, ha, hb, hc):
         ra, rb, rc = tris_np[:, 0], tris_np[:, 1], tris_np[:, 2]
     bins = cpt_mod.build_seed_bins(grid, ra, rb, rc,
                                    pad=cpt_mod.seed_pad_for(grid))
-    line_bins = tuple(
-        pallas_parity.build_line_bins(
-            grid, axis, tris_np[:, 0], tris_np[:, 1], tris_np[:, 2]
-        )
-        for axis in range(3)
-    )
     # Cache DEVICE arrays: the big cell_row map uploads once per mesh/grid.
     out = (
         jnp.asarray(np.stack([ra, rb, rc])),
@@ -223,7 +209,6 @@ def _cpt_prep(grid: Grid, ha, hb, hc):
             jnp.asarray(bins.cell_row),
             bins.n_shift_rounds,
         ),
-        line_bins,
     )
     if len(_CPT_PREP_CACHE) >= _CPT_PREP_CACHE_MAX:
         _CPT_PREP_CACHE.pop(next(iter(_CPT_PREP_CACHE)))
@@ -233,12 +218,11 @@ def _cpt_prep(grid: Grid, ha, hb, hc):
 
 @functools.partial(
     jax.jit,
-    static_argnames=("raycast", "on_tpu", "flat", "raycast_axes",
-                     "seed_rounds", "sweep_rounds"),
+    static_argnames=("raycast", "flat", "raycast_axes", "seed_rounds",
+                     "sweep_rounds"),
 )
 def _cpt_grid_signed(grid, tris, tris_orig, seed_entry, seed_rows,
-                     seed_cellrow, line_bins,
-                     raycast: bool, on_tpu: bool, flat: bool,
+                     seed_cellrow, raycast: bool, flat: bool,
                      raycast_axes: int = 3, seed_rounds: int = 0,
                      sweep_rounds: int = 1):
     """Fused CPT distance + sign for one grid (single dispatch).
@@ -248,11 +232,6 @@ def _cpt_grid_signed(grid, tris, tris_orig, seed_entry, seed_rows,
     seed gather lists (cpt.build_seed_bins — exact AABB±1 coverage);
     tris_orig: (3, T0, 3) original triangles — raycast parity is
     subdivision-invariant, so the sign pass uses the smaller soup.
-
-    Returns (signed distances, parity-overflow count). A nonzero overflow
-    means the Pallas parity kernel dropped crossings (more than K_DISTINCT
-    distinct hit buckets in one triangle sub-block) and the caller must
-    re-sign via the exact engine — see :func:`_exact_resign`.
     """
     from .ops import cpt as cpt_mod
 
@@ -261,15 +240,9 @@ def _cpt_grid_signed(grid, tris, tris_orig, seed_entry, seed_rows,
         grid, ra, rb, rc,
         cpt_mod.SeedBins(seed_entry, seed_rows, seed_cellrow, seed_rounds),
     )
-    if on_tpu:
-        dist3, idx3 = cpt_mod.closest_point_grid_pallas(
-            grid, ra, rb, rc, seed=seed, rounds=sweep_rounds
-        )
-    else:
-        dist3, idx3 = cpt_mod.closest_point_grid(
-            grid, ra, rb, rc, seed=seed, rounds=sweep_rounds
-        )
-    ovf = jnp.zeros((), jnp.int32)
+    dist3, idx3 = cpt_mod.closest_point_grid(
+        grid, ra, rb, rc, seed=seed, rounds=sweep_rounds
+    )
     if not raycast:
         # Normal sign from the nearest triangle — the reference Rtree
         # backend's semantics (`rtree.rs:96-126`, ~1% of near-edge cells may
@@ -277,38 +250,12 @@ def _cpt_grid_signed(grid, tris, tris_orig, seed_entry, seed_rows,
         dist3 = cpt_mod.normal_sign_from_idx(grid, ra, rb, rc, dist3, idx3)
     else:
         oa, ob, oc = tris_orig[0], tris_orig[1], tris_orig[2]
-        if on_tpu:
-            from .ops.kernels import pallas_parity
-
-            inside, ovf = pallas_parity.grid_inside_mask_pallas(
-                grid, oa, ob, oc, axes=raycast_axes, line_bins=line_bins
-            )
-        else:
-            valid = jnp.ones((oa.shape[0],), bool)
-            inside = raycast_mod.grid_inside_mask(
-                grid, oa, ob, oc, valid, tri_block=256, axes=raycast_axes
-            )
+        valid = jnp.ones((oa.shape[0],), bool)
+        inside = raycast_mod.grid_inside_mask(
+            grid, oa, ob, oc, valid, tri_block=256, axes=raycast_axes
+        )
         dist3 = jnp.where(inside, -dist3, dist3)
-    return (dist3.reshape(-1) if flat else dist3), ovf
-
-
-def _exact_resign(signed, vertices, topology, grid, raycast_axes, tri_block,
-                  flat):
-    """Re-sign |signed| with the exact XLA line-parity engine.
-
-    Fallback when the Pallas parity kernel reports overflow (dropped
-    crossings): rare, so the extra dispatch only happens when correctness
-    demands it.
-    """
-    ta, tb, tc, valid, n_tris = prepare_triangles(vertices, topology, tri_block)
-    inside = raycast.grid_inside_mask(
-        grid, ta, tb, tc, valid, tri_block=min(tri_block, 256),
-        axes=raycast_axes,
-    )
-    if flat:
-        inside = inside.reshape(-1)
-    mag = jnp.abs(signed)
-    return jnp.where(inside, -mag, mag)
+    return dist3.reshape(-1) if flat else dist3
 
 
 def _count_triangles(vertices, topology) -> int:
@@ -352,8 +299,6 @@ def generate_grid_sdf(
     CULLED strategies are exact either way; CPT trades ≤2% far-field error
     for O(cells) cost).
     """
-    from .query import _auto_strategy
-
     strategy, sign = _resolve(
         strategy if strategy is not None else Strategy.AUTO, sign_method
     )
@@ -362,15 +307,16 @@ def generate_grid_sdf(
     if strategy == Strategy.AUTO:
         # Cost model: the dense engine is O(cells·tris); CPT is O(cells)
         # sweeps plus a fixed overhead. Below the crossover the dense sweep
-        # wins outright. Constants are measured on TPU v5e (BENCH.md) and
-        # overridable for other platforms.
+        # wins outright. Constants are per platform (_AUTO_DEFAULTS).
         n_cells = grid.total_cell_count
         n_t = _count_triangles(vertices, topology)
         dense_pairs, cpt_overhead, cpt_cells = _auto_constants()
         dense_cost = n_cells * max(n_t, 1) / dense_pairs
         cpt_cost = cpt_overhead + n_cells / cpt_cells
-        strategy = Strategy.CPT if cpt_cost < dense_cost else _auto_strategy()
-
+        strategy = (Strategy.CPT if cpt_cost < dense_cost
+                    else dense.dense_strategy())
+    if strategy == Strategy.PALLAS:
+        dense.require_kernel()
 
     if strategy == Strategy.CPT:
         # Host-side triangle prep only — no intermediate device round-trips.
@@ -384,18 +330,16 @@ def generate_grid_sdf(
         if len(ha) > 0:
             # Seeds come from host-binned AABB±1 rasterization (exact
             # coverage, no fixed window), cached by mesh/grid content.
-            tris_dev, bins, line_bins = _cpt_prep(grid, ha, hb, hc)
+            tris_dev, bins = _cpt_prep(grid, ha, hb, hc)
             # One upload + one jitted program for the whole device pipeline.
-            out, ovf = _cpt_grid_signed(
+            return _cpt_grid_signed(
                 grid,
                 tris_dev,
                 jnp.asarray(np.stack([ha, hb, hc])),
                 bins.entry_tri,
                 bins.rows_cell,
                 bins.cell_row,
-                line_bins,
                 raycast=sign == SignMethod.RAYCAST,
-                on_tpu=jax.default_backend() == "tpu",
                 flat=flat,
                 raycast_axes=raycast_axes,
                 seed_rounds=bins.n_shift_rounds,
@@ -406,34 +350,22 @@ def generate_grid_sdf(
                 # one round (the sweep phase dominates 256³ wall time).
                 sweep_rounds=2 if max(grid.cell_count) <= 128 else 1,
             )
-            if sign == SignMethod.RAYCAST and int(ovf) > 0:
-                # Pallas parity dropped crossings (> K_DISTINCT distinct hit
-                # buckets in one sub-block — deep depth complexity). Re-sign
-                # with the exact XLA engine rather than ship a wrong sign.
-                out = _exact_resign(
-                    out, vertices, topology, grid, raycast_axes, tri_block, flat
-                )
-            return out
 
     ta, tb, tc, valid, n_tris = prepare_triangles(vertices, topology, tri_block)
 
     if strategy == Strategy.PALLAS and n_tris > 0:
-        import jax as _jax
-
         from .ops.kernels import pallas_sdf
 
-        interp = _jax.default_backend() != "tpu"
         centers = grid.all_cell_centers().reshape(-1, 3)
         ra, rb, rc = ta[:n_tris], tb[:n_tris], tc[:n_tris]
         if sign == SignMethod.NORMAL:
-            dist3 = pallas_sdf.sdf_normal_pallas(
-                centers, ra, rb, rc, interpret=interp
-            )[: centers.shape[0]].reshape(grid.cell_count)
+            dist = pallas_sdf.sdf_normal_pallas(centers, ra, rb, rc)
         else:
-            # Unsigned distance only; sign comes from the line-parity kernel.
-            dist3 = pallas_sdf.sdf_raycast_pallas(
-                centers, ra, rb, rc, raycast_axes=0, interpret=interp
-            )[: centers.shape[0]].reshape(grid.cell_count)
+            # Unsigned distance only; sign comes from the line parity below.
+            dist = pallas_sdf.sdf_raycast_pallas(
+                centers, ra, rb, rc, raycast_axes=0
+            )
+        dist3 = dist.reshape(grid.cell_count)
     elif strategy == Strategy.CULLED and n_tris > 0:
         from .ops import culling
 
@@ -457,26 +389,10 @@ def generate_grid_sdf(
         dist3 = dist.reshape(grid.cell_count)
 
     if sign == SignMethod.RAYCAST:
-        # Pallas parity kernel on TPU regardless of the distance strategy;
-        # the XLA sort-based kernel elsewhere (interpret-mode Pallas would be
-        # slower than XLA on CPU).
-        if jax.default_backend() == "tpu" and n_tris > 0:
-            from .ops.kernels import pallas_parity
-
-            inside, ovf = pallas_parity.grid_inside_mask_pallas(
-                grid, ta[:n_tris], tb[:n_tris], tc[:n_tris], axes=raycast_axes
-            )
-            if int(ovf) > 0:
-                # Dropped crossings — fall back to the exact XLA parity.
-                inside = raycast.grid_inside_mask(
-                    grid, ta, tb, tc, valid, tri_block=min(tri_block, 256),
-                    axes=raycast_axes,
-                )
-        else:
-            inside = raycast.grid_inside_mask(
-                grid, ta, tb, tc, valid, tri_block=min(tri_block, 256),
-                axes=raycast_axes,
-            )
+        inside = raycast.grid_inside_mask(
+            grid, ta, tb, tc, valid, tri_block=min(tri_block, 256),
+            axes=raycast_axes,
+        )
         dist3 = jnp.where(inside, -dist3, dist3)
 
     return dist3.reshape(-1) if flat else dist3

@@ -7,7 +7,7 @@ Capability parity with the reference serde subsystem
 (`serde.rs:192-221` — ``save_to_file`` / ``read_from_file``), and golden-file
 backward-compatibility tests (`serde.rs:315-374`).
 
-Design notes (TPU-first, not a byte-port of rmp-serde):
+Design notes (not a byte-port of rmp-serde):
 - arrays are framed as raw little-endian buffers with explicit dtype/shape so
   loads are a single zero-copy ``np.frombuffer`` — no per-element msgpack
   decode on the host (the reference pays rmp per-float costs; we do not);

@@ -1,6 +1,6 @@
 """ctypes bindings for the native C++ runtime library (native/libm2s.so).
 
-The reference framework is 100% native; here the TPU compute path is
+The reference framework is 100% native; here the device compute path is
 JAX/Pallas and the host-side runtime (GLB framing, accessor decode, Morton
 preprocessing, SDF container packing) has a native C++ implementation with a
 pure-Python fallback. Build with ``make -C native``; all call sites degrade

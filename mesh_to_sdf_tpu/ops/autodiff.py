@@ -205,8 +205,7 @@ signed_champion_distances.defvjp(_champ_fwd, _champ_bwd)
 # =====================================================================
 # CPT-backed grid distance: O(cells + tris) forward, envelope backward
 # =====================================================================
-def make_cpt_grid_distance(grid, tri_idx_np, vertices_example, *,
-                           use_pallas=None):
+def make_cpt_grid_distance(grid, tri_idx_np, vertices_example):
     """Build a differentiable ``f(vertices) -> dist (nx,ny,nz)`` that runs the
     CPT engine forward (O(cells+tris), see ops/cpt.py) and the envelope VJP
     backward — the scalable path for DifferentiableSDF at big grids (the
@@ -262,9 +261,6 @@ def make_cpt_grid_distance(grid, tri_idx_np, vertices_example, *,
     parents_j = jnp.asarray(parents.astype(np.int32))
     tri_idx_j = jnp.asarray(tri_idx_np.astype(np.int32))
 
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
-
     def _sub_tris(vertices):
         pa = vertices[parent_corners[:, 0]]
         pb = vertices[parent_corners[:, 1]]
@@ -282,11 +278,7 @@ def make_cpt_grid_distance(grid, tri_idx_np, vertices_example, *,
 
     def _forward(vertices):
         ta, tb, tc = _sub_tris(vertices)
-        if use_pallas:
-            dist, idx = cpt_mod.closest_point_grid_pallas(grid, ta, tb, tc)
-        else:
-            dist, idx = cpt_mod.closest_point_grid(grid, ta, tb, tc)
-        return dist, idx
+        return cpt_mod.closest_point_grid(grid, ta, tb, tc)
 
     def fwd(vertices):
         dist, idx = _forward(vertices)

@@ -1,11 +1,12 @@
 """Fused XLA brute-force SDF engine: query blocks × triangle blocks.
 
-This is the TPU-native replacement for the reference's tree-based generators
-(`mesh_to_sdf/src/generate/generic/{default,bvh,rtree,rtree_bvh}.rs`): on a
-vector machine the branchy per-query tree traversal loses to a dense tiled
-sweep of all triangle blocks with an associative reduction. XLA fuses the
-per-pair geometry (≈80 VPU flops) directly into the block reduction, so the
-(chunk × block) pair tensor never round-trips through HBM.
+The array replacement for the reference's tree-based generators
+(`mesh_to_sdf/src/generate/generic/{default,bvh,rtree,rtree_bvh}.rs`): a
+dense tiled sweep of all triangle blocks with an associative reduction. XLA
+fuses the per-pair geometry (≈80 flops) into the block reduction, so the
+(chunk × block) pair tensor is not written to device memory. The reference
+engine for the GPU kernel (:mod:`.kernels.pallas_sdf`) and the CPU route of
+:mod:`.dense`.
 
 Shapes are static everywhere: queries are padded to a multiple of the chunk
 size, triangles to a multiple of the block size, with validity masks.
@@ -22,8 +23,7 @@ from ..types import F32_MAX, SignMethod
 from . import geometry
 from .keyed import combine_champions
 
-# Default tile sizes: chosen so a (CHUNK, BLOCK) f32 intermediate ≈ 8 MB —
-# comfortably inside VMEM-sized working sets after XLA fusion.
+# Default tile sizes: a (CHUNK, BLOCK) f32 intermediate is 4 MB.
 DEFAULT_QUERY_CHUNK = 2048
 DEFAULT_TRI_BLOCK = 512
 

@@ -1,11 +1,11 @@
 """Branchless triangle geometry kernels (vmappable, XLA/Pallas-friendly).
 
-TPU-native re-design of the reference geometry layer
+Array re-design of the reference geometry layer
 (`mesh_to_sdf/src/geo.rs`). Every function here is:
 
 - **branchless** — the reference's early-return ladders (Embree region tests,
   degenerate-triangle guards) become ``jnp.where`` selection ladders so the
-  whole thing vectorizes onto the VPU with static shapes;
+  whole thing vectorizes with static shapes;
 - **broadcasting** — all functions accept arbitrary leading batch dims, so the
   same code runs per-pair inside a Pallas tile or over a full (Q, T) block;
 - **division-safe** — every divisor is guarded so no branch ever produces
@@ -38,6 +38,100 @@ def _safe_div(num, den):
     """num/den with den==0 treated as 1 (branch never selected downstream)."""
     safe = jnp.where(den == 0.0, 1.0, den)
     return num / safe
+
+
+def _safe_recip(x):
+    return jnp.where(x == 0.0, 0.0, 1.0 / jnp.where(x == 0.0, 1.0, x))
+
+
+def closest_point_vw(apx, apy, apz, abx, aby, abz, acx, acy, acz):
+    """Plane-form closest-point ladder: barycentric (v, w) of the closest
+    point (u = 1-v-w) from the separate coordinate planes of ap = p − a,
+    ab and ac (any broadcastable shapes).
+
+    Algebraically restructured Embree ladder (`geo.rs:70-138`) whose
+    per-pair work is mul/add/select only: the edge parameters and the
+    interior denominator ``|ab×ac|²`` are per-triangle. Degenerate
+    triangles take the reference's segment/vertex fallbacks
+    (`geo.rs:73-88`). Returns (v, w, d1, d2, A, B_, C) — the latter reused
+    by :func:`dist2_vw` and the normal-sign test. Shared by the Triton
+    kernel, the CULLED gather pass and the CPT sweeps.
+    """
+    d1 = abx * apx + aby * apy + abz * apz
+    d2 = acx * apx + acy * apy + acz * apz
+
+    A = abx * abx + aby * aby + abz * abz  # |ab|²      (1, B)
+    B_ = abx * acx + aby * acy + abz * acz  # ab·ac
+    C = acx * acx + acy * acy + acz * acz  # |ac|²
+
+    d3 = d1 - A
+    d4 = d2 - B_
+    d5 = d1 - B_
+    d6 = d2 - C
+
+    vc = d1 * d4 - d3 * d2
+    vb = d5 * d2 - d1 * d6
+    va = d3 * d6 - d5 * d4
+
+    inv_A = _safe_recip(A)
+    inv_C = _safe_recip(C)
+    inv_bc = _safe_recip(A - 2.0 * B_ + C)  # 1/|b-c|²
+    inv_den = _safe_recip(A * C - B_ * B_)  # 1/|ab×ac|²
+
+    t_ab = d1 * inv_A
+    t_ac = d2 * inv_C
+    t_bc = (d4 - d3) * inv_bc
+
+    # Lowest priority: interior (`geo.rs:130-137`), then edges, then vertices.
+    v = vb * inv_den
+    w = vc * inv_den
+
+    on_bc = (va <= 0.0) & (d4 - d3 >= 0.0) & (d5 - d6 >= 0.0)
+    v = jnp.where(on_bc, 1.0 - t_bc, v)
+    w = jnp.where(on_bc, t_bc, w)
+
+    on_ac = (vb <= 0.0) & (d2 >= 0.0) & (d6 <= 0.0)
+    v = jnp.where(on_ac, 0.0, v)
+    w = jnp.where(on_ac, t_ac, w)
+
+    on_ab = (vc <= 0.0) & (d1 >= 0.0) & (d3 <= 0.0)
+    v = jnp.where(on_ab, t_ab, v)
+    w = jnp.where(on_ab, 0.0, w)
+
+    in_c = (d6 >= 0.0) & (d5 <= d6)
+    v = jnp.where(in_c, 0.0, v)
+    w = jnp.where(in_c, 1.0, w)
+
+    in_b = (d3 >= 0.0) & (d4 <= d3)
+    v = jnp.where(in_b, 1.0, v)
+    w = jnp.where(in_b, 0.0, w)
+
+    in_a = (d1 <= 0.0) & (d2 <= 0.0)
+    v = jnp.where(in_a, 0.0, v)
+    w = jnp.where(in_a, 0.0, w)
+
+    # Degenerate guards (`geo.rs:73-88`): per-triangle masks, highest priority.
+    eq_ab = (abx == 0.0) & (aby == 0.0) & (abz == 0.0)  # b == a
+    eq_ac = (acx == 0.0) & (acy == 0.0) & (acz == 0.0)  # c == a
+    eq_bc = (abx == acx) & (aby == acy) & (abz == acz)  # b == c
+    s_ab = jnp.clip(t_ab, 0.0, 1.0)
+    s_ac = jnp.clip(t_ac, 0.0, 1.0)
+    seg_ab = eq_bc | eq_ac  # degenerate → segment [a, b]
+    v = jnp.where(seg_ab, s_ab, v)
+    w = jnp.where(seg_ab, 0.0, w)
+    v = jnp.where(eq_ab, 0.0, v)  # degenerate → segment [a, c]
+    w = jnp.where(eq_ab, s_ac, w)
+    all_eq = eq_ab & eq_bc
+    v = jnp.where(all_eq, 0.0, v)
+    w = jnp.where(all_eq, 0.0, w)
+    return v, w, d1, d2, A, B_, C
+
+
+def dist2_vw(apx, apy, apz, v, w, d1, d2, A, B_, C):
+    """Squared distance |ap − v·ab − w·ac|², expanded (clamped at 0)."""
+    ap2 = apx * apx + apy * apy + apz * apz
+    d2out = ap2 + v * (v * A - 2.0 * d1 + 2.0 * w * B_) + w * (w * C - 2.0 * d2)
+    return jnp.maximum(d2out, 0.0)
 
 
 def triangle_bounding_box(a, b, c):

@@ -1,158 +1,64 @@
-"""Fused Pallas TPU kernel: point→mesh signed distance, tiled in VMEM.
+"""Fused Pallas kernel (Triton route): point→mesh distance, sign counts.
 
-The TPU-native replacement for the reference's hot loops
-(`mesh_to_sdf/src/generate/generic/*.rs` per-query tree traversals): a
-(query-tile × triangle-block) sweep where each grid step keeps every
-intermediate of the closest-point ladder in VMEM/registers — the XLA fallback
-(:mod:`..brute`) materializes (chunk × block) temporaries to HBM and runs at
-~2% of VPU peak; this kernel exists to close that gap.
+The GPU replacement for the reference's hot loops
+(`mesh_to_sdf/src/generate/generic/*.rs` per-query tree traversals): each
+program owns one tile of ``tq`` queries and walks the whole triangle soup in
+``tb``-sized blocks with a ``lax.fori_loop``, keeping the running minimum
+(and the per-axis crossing counts) in registers. The result is stored once
+at the end — there is no accumulation across programs, which run in no
+order. The XLA engine (:mod:`..brute`) it competes with is a ``lax.map``
+over query chunks of a ``lax.scan`` over triangle blocks.
 
-Algebraic restructuring vs the textbook Embree ladder (`geo.rs:70-138`) so the
-per-pair work is pure mul/add/select (no per-pair divides):
+The pair math is the plane-form closest-point ladder of
+:func:`..geometry.closest_point_vw` (mul/add/select only; the divides are
+per-triangle constants).
 
-- ``d3 = d1 − |ab|²``, ``d4 = d2 − ab·ac``, ``d5 = d1 − ab·ac``,
-  ``d6 = d2 − |ac|²`` (bp = ap − ab, cp = ap − ac);
-- the three edge parameters have *per-triangle* denominators:
-  ``t_ab = d1/|ab|²``, ``t_ac = d2/|ac|²``, ``t_bc = (d4−d3)/|b−c|²``;
-- the interior denominator is the per-triangle constant
-  ``va+vb+vc = |ab|²|ac|² − (ab·ac)² = |ab×ac|²``;
-- distance² = |ap|² + v·(v·|ab|² − 2·d1 + 2·w·ab·ac) + w·(w·|ac|² − 2·d2)
-  (expansion of |ap − v·ab − w·ac|²).
-
-Degenerate triangles take the reference's explicit segment/vertex fallbacks
-(`geo.rs:73-88`), evaluated branchlessly. Padding triangles use
-``a=b=c=(PAD,PAD,PAD)`` which yields a huge distance and no ray crossings —
-no validity mask needed in the kernel.
+Padding triangles use
+``a=(PAD,PAD,PAD)`` with zero edges, which yields a huge distance and no ray
+crossings — no validity mask is needed in the kernel.
 
 Raycast crossing parity (`geo.rs:156-216`) is fused into the same pass: the
 2-D edge weights are built from ap and the (ab, ac) planes already loaded, so
 the triangle block is read once for both distance and sign.
+
+Numerics: the pair math is elementwise fp32; Triton contracts mul+add into
+FMAs in another order than XLA's CPU backend, so distances agree with
+:mod:`..brute` to a few ulps (tests compare with ``rtol=1e-5``), not bitwise.
 """
 from __future__ import annotations
 
 import functools
-from typing import Tuple
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from ...types import F32_MAX
+from ..geometry import closest_point_vw, dist2_vw
 
 #: Padding coordinate for triangle tail blocks (|q - PAD|² stays finite f32).
 PAD_COORD = 1.0e18
-#: Query tile / triangle block sizes. 1-D Pallas blocks must match the XLA
-#: tiled layout T(1024), so both are 1024-multiples; the kernel iterates over
-#: ``SUB``-sized triangle sub-slices so pair temporaries stay ≤ (TQ, SUB) f32
-#: (VMEM scoped-allocation budget is ~16 MB).
-DEFAULT_TQ = 1024
-DEFAULT_TB = 1024
-SUB = 128
-
-_NEG = -1.0
-_POS = 1.0
+#: Queries per program and triangles per inner-loop step (powers of two, as
+#: the Triton route requires), with the warps per program. Chosen by a sweep
+#: on the H100 (PERF.md, "Kernel decisions on the H100").
+DEFAULT_TQ = 32
+DEFAULT_TB = 32
+DEFAULT_WARPS = 4
 
 
-def _safe_recip(x):
-    return jnp.where(x == 0.0, 0.0, 1.0 / jnp.where(x == 0.0, 1.0, x))
-
-
-def _closest_point_vw(apx, apy, apz, abx, aby, abz, acx, acy, acz):
-    """Barycentric (v, w) of the closest point (u = 1-v-w) for every pair.
-
-    ap*: (TQ, B); ab*/ac*: (1, B). Returns (v, w, d1, d2, A, B_, C) — the
-    latter reused by distance² and the normal-sign test.
-    """
-    d1 = abx * apx + aby * apy + abz * apz
-    d2 = acx * apx + acy * apy + acz * apz
-
-    A = abx * abx + aby * aby + abz * abz  # |ab|²      (1, B)
-    B_ = abx * acx + aby * acy + abz * acz  # ab·ac
-    C = acx * acx + acy * acy + acz * acz  # |ac|²
-
-    d3 = d1 - A
-    d4 = d2 - B_
-    d5 = d1 - B_
-    d6 = d2 - C
-
-    vc = d1 * d4 - d3 * d2
-    vb = d5 * d2 - d1 * d6
-    va = d3 * d6 - d5 * d4
-
-    inv_A = _safe_recip(A)
-    inv_C = _safe_recip(C)
-    inv_bc = _safe_recip(A - 2.0 * B_ + C)  # 1/|b-c|²
-    inv_den = _safe_recip(A * C - B_ * B_)  # 1/|ab×ac|²
-
-    t_ab = d1 * inv_A
-    t_ac = d2 * inv_C
-    t_bc = (d4 - d3) * inv_bc
-
-    # Lowest priority: interior (`geo.rs:130-137`), then edges, then vertices.
-    v = vb * inv_den
-    w = vc * inv_den
-
-    on_bc = (va <= 0.0) & (d4 - d3 >= 0.0) & (d5 - d6 >= 0.0)
-    v = jnp.where(on_bc, 1.0 - t_bc, v)
-    w = jnp.where(on_bc, t_bc, w)
-
-    on_ac = (vb <= 0.0) & (d2 >= 0.0) & (d6 <= 0.0)
-    v = jnp.where(on_ac, 0.0, v)
-    w = jnp.where(on_ac, t_ac, w)
-
-    on_ab = (vc <= 0.0) & (d1 >= 0.0) & (d3 <= 0.0)
-    v = jnp.where(on_ab, t_ab, v)
-    w = jnp.where(on_ab, 0.0, w)
-
-    in_c = (d6 >= 0.0) & (d5 <= d6)
-    v = jnp.where(in_c, 0.0, v)
-    w = jnp.where(in_c, 1.0, w)
-
-    in_b = (d3 >= 0.0) & (d4 <= d3)
-    v = jnp.where(in_b, 1.0, v)
-    w = jnp.where(in_b, 0.0, w)
-
-    in_a = (d1 <= 0.0) & (d2 <= 0.0)
-    v = jnp.where(in_a, 0.0, v)
-    w = jnp.where(in_a, 0.0, w)
-
-    # Degenerate guards (`geo.rs:73-88`): per-triangle masks, highest priority.
-    eq_ab = (abx == 0.0) & (aby == 0.0) & (abz == 0.0)  # b == a
-    eq_ac = (acx == 0.0) & (acy == 0.0) & (acz == 0.0)  # c == a
-    eq_bc = (abx == acx) & (aby == acy) & (abz == acz)  # b == c
-    s_ab = jnp.clip(t_ab, 0.0, 1.0)
-    s_ac = jnp.clip(t_ac, 0.0, 1.0)
-    seg_ab = eq_bc | eq_ac  # degenerate → segment [a, b]
-    v = jnp.where(seg_ab, s_ab, v)
-    w = jnp.where(seg_ab, 0.0, w)
-    v = jnp.where(eq_ab, 0.0, v)  # degenerate → segment [a, c]
-    w = jnp.where(eq_ab, s_ac, w)
-    all_eq = eq_ab & eq_bc
-    v = jnp.where(all_eq, 0.0, v)
-    w = jnp.where(all_eq, 0.0, w)
-    return v, w, d1, d2, A, B_, C
-
-
-def _dist2(apx, apy, apz, v, w, d1, d2, A, B_, C):
-    ap2 = apx * apx + apy * apy + apz * apz
-    d2out = ap2 + v * (v * A - 2.0 * d1 + 2.0 * w * B_) + w * (w * C - 2.0 * d2)
-    return jnp.maximum(d2out, 0.0)
-
-
-def _axis_crossings(axis, apx_all, abx_all, acx_all):
+def _axis_crossings(axis, ap, ab, ac):
     """Strict axis-aligned crossing test (`geo.rs:165-216`) for +axis rays.
 
-    apx_all/abx_all/acx_all: 3-tuples of the (x, y, z) planes. Returns a
-    (TQ, B) bool mask of crossings with t > 0.
+    ap/ab/ac: 3-tuples of the (x, y, z) planes. Returns a (TQ, B) bool mask
+    of crossings with t > 0.
     """
     ix = axis
     iy = (axis + 1) % 3
     iz = (axis + 2) % 3
-    apx, apy, apz = apx_all[ix], apx_all[iy], apx_all[iz]
-    aby, abz = abx_all[iy], abx_all[iz]
-    acy, acz = acx_all[iy], acx_all[iz]
-    abx_c, acx_c = abx_all[ix], acx_all[ix]
+    apx, apy, apz = ap[ix], ap[iy], ap[iz]
+    aby, abz = ab[iy], ab[iz]
+    acy, acz = ac[iy], ac[iz]
 
     # p0 = ap; p1 = ap - ab; p2 = ap - ac. Edges: e01 = ab, e12 = ac - ab,
     # e20 = -ac (projected to the (iy, iz) plane).
@@ -170,116 +76,85 @@ def _axis_crossings(axis, apx_all, abx_all, acx_all):
     inside = ((w0 < 0.0) & (w1 < 0.0) & (w2 < 0.0)) | (
         (w0 > 0.0) & (w1 > 0.0) & (w2 > 0.0)
     )
-    p1x = apx - abx_c
-    p2x = apx - acx_c
+    p1x = apx - ab[ix]
+    p2x = apx - ac[ix]
     num = w0 * apx + w1 * p1x + w2 * p2x
     den = w0 + w1 + w2
     # t = -num/den > 0  ⇔  num·den < 0 (den ≠ 0 whenever `inside`).
     return inside & (num * den < 0.0)
 
 
-def _load_sub(q_refs, t_refs, s, sub):
-    """Pair planes for triangle sub-slice [s·sub, (s+1)·sub)."""
-    qx = q_refs[0][:][:, None]
-    qy = q_refs[1][:][:, None]
-    qz = q_refs[2][:][:, None]
-    sl = slice(s * sub, (s + 1) * sub)
-    ax = t_refs[0][sl][None, :]
-    ay = t_refs[1][sl][None, :]
-    az = t_refs[2][sl][None, :]
-    abx = t_refs[3][sl][None, :]
-    aby = t_refs[4][sl][None, :]
-    abz = t_refs[5][sl][None, :]
-    acx = t_refs[6][sl][None, :]
-    acy = t_refs[7][sl][None, :]
-    acz = t_refs[8][sl][None, :]
-    ap = (qx - ax, qy - ay, qz - az)
-    ab = (abx, aby, abz)
-    ac = (acx, acy, acz)
-    return ap, ab, ac
+def _pairs(q, t_refs, j, tb):
+    """(ap, ab, ac) plane triples for triangle block ``j`` vs the query tile."""
+    sl = pl.ds(j * tb, tb)
+    p = [r[sl][None, :] for r in t_refs]
+    ap = (q[0] - p[0], q[1] - p[1], q[2] - p[2])
+    return ap, (p[3], p[4], p[5]), (p[6], p[7], p[8])
 
 
-def _kernel_raycast(*refs, raycast_axes: int, n_sub: int, sub: int):
-    """9 tri planes + 3 query planes → min dist² + per-axis crossing counts."""
-    q_refs = refs[0:3]
-    t_refs = refs[3:12]
-    d2_ref = refs[12]
-    cnt_refs = refs[13 : 13 + raycast_axes]
-
+def _kernel_raycast(*refs, raycast_axes: int, tb: int, n_tb: int):
+    """3 query planes + 9 tri planes → min dist² + per-axis crossing counts."""
+    q_refs, t_refs = refs[0:3], refs[3:12]
+    d2_ref, cnt_refs = refs[12], refs[13:]
+    q = [r[...][:, None] for r in q_refs]
     tq = q_refs[0].shape[0]
-    run_min = jnp.full((tq,), jnp.float32(F32_MAX))
-    run_cnt = [jnp.zeros((tq,), jnp.int32) for _ in range(raycast_axes)]
-    for s in range(n_sub):
-        ap, ab, ac = _load_sub(q_refs, t_refs, s, sub)
-        v, w, d1, d2_, A, B_, C = _closest_point_vw(*ap, *ab, *ac)
-        d2pair = _dist2(*ap, v, w, d1, d2_, A, B_, C)
+
+    def body(j, carry):
+        run_min, cnts = carry
+        ap, ab, ac = _pairs(q, t_refs, j, tb)
+        v, w, d1, d2_, A, B_, C = closest_point_vw(*ap, *ab, *ac)
+        d2pair = dist2_vw(*ap, v, w, d1, d2_, A, B_, C)
         run_min = jnp.minimum(run_min, jnp.min(d2pair, axis=1))
-        for k in range(raycast_axes):
-            hit = _axis_crossings(k, ap, ab, ac)
-            run_cnt[k] = run_cnt[k] + jnp.sum(hit.astype(jnp.int32), axis=1)
+        cnts = tuple(
+            c + jnp.sum(_axis_crossings(k, ap, ab, ac).astype(jnp.int32),
+                        axis=1)
+            for k, c in enumerate(cnts)
+        )
+        return run_min, cnts
 
-    first = pl.program_id(1) == 0
-
-    @pl.when(first)
-    def _():
-        d2_ref[:] = run_min
-
-    @pl.when(jnp.logical_not(first))
-    def _():
-        d2_ref[:] = jnp.minimum(d2_ref[:], run_min)
-
-    for k in range(raycast_axes):
-        @pl.when(first)
-        def _(k=k):
-            cnt_refs[k][:] = run_cnt[k]
-
-        @pl.when(jnp.logical_not(first))
-        def _(k=k):
-            cnt_refs[k][:] = cnt_refs[k][:] + run_cnt[k]
+    init = (
+        jnp.full((tq,), F32_MAX, jnp.float32),
+        tuple(jnp.zeros((tq,), jnp.int32) for _ in range(raycast_axes)),
+    )
+    run_min, cnts = jax.lax.fori_loop(0, n_tb, body, init)
+    d2_ref[...] = run_min
+    for r, c in zip(cnt_refs, cnts):
+        r[...] = c
 
 
-def _kernel_normal(*refs, n_sub: int, sub: int):
+def _kernel_normal(*refs, tb: int, n_tb: int):
     """Normal-sign mode: two champions (min pos², min neg²) per query."""
-    q_refs = refs[0:3]
-    t_refs = refs[3:12]
+    q_refs, t_refs = refs[0:3], refs[3:12]
     pos_ref, neg_ref = refs[12], refs[13]
-
+    q = [r[...][:, None] for r in q_refs]
     tq = q_refs[0].shape[0]
-    run_pos = jnp.full((tq,), jnp.float32(F32_MAX))
-    run_neg = jnp.full((tq,), jnp.float32(F32_MAX))
-    for s in range(n_sub):
-        ap, ab, ac = _load_sub(q_refs, t_refs, s, sub)
-        v, w, d1, d2_, A, B_, C = _closest_point_vw(*ap, *ab, *ac)
-        d2pair = _dist2(*ap, v, w, d1, d2_, A, B_, C)
 
+    def body(j, carry):
+        run_pos, run_neg = carry
+        ap, ab, ac = _pairs(q, t_refs, j, tb)
+        v, w, d1, d2_, A, B_, C = closest_point_vw(*ap, *ab, *ac)
+        d2pair = dist2_vw(*ap, v, w, d1, d2_, A, B_, C)
         # Normal side test (`geo.rs:51-55`): ap·(ab×ac) > 0 ⇒ positive.
         nx = ab[1] * ac[2] - ab[2] * ac[1]
         ny = ab[2] * ac[0] - ab[0] * ac[2]
         nz = ab[0] * ac[1] - ab[1] * ac[0]
-        dotn = ap[0] * nx + ap[1] * ny + ap[2] * nz
-        posmask = dotn > 0.0
+        posmask = ap[0] * nx + ap[1] * ny + ap[2] * nz > 0.0
+        run_pos = jnp.minimum(
+            run_pos, jnp.min(jnp.where(posmask, d2pair, F32_MAX), axis=1)
+        )
+        run_neg = jnp.minimum(
+            run_neg, jnp.min(jnp.where(posmask, F32_MAX, d2pair), axis=1)
+        )
+        return run_pos, run_neg
 
-        p = jnp.min(jnp.where(posmask, d2pair, F32_MAX), axis=1)
-        n = jnp.min(jnp.where(posmask, F32_MAX, d2pair), axis=1)
-        run_pos = jnp.minimum(run_pos, p)
-        run_neg = jnp.minimum(run_neg, n)
-
-    first = pl.program_id(1) == 0
-
-    @pl.when(first)
-    def _():
-        pos_ref[:] = run_pos
-        neg_ref[:] = run_neg
-
-    @pl.when(jnp.logical_not(first))
-    def _():
-        pos_ref[:] = jnp.minimum(pos_ref[:], run_pos)
-        neg_ref[:] = jnp.minimum(neg_ref[:], run_neg)
+    init = (jnp.full((tq,), F32_MAX, jnp.float32),) * 2
+    run_pos, run_neg = jax.lax.fori_loop(0, n_tb, body, init)
+    pos_ref[...] = run_pos
+    neg_ref[...] = run_neg
 
 
 def _pad_rows(x: jnp.ndarray, mult: int, value: float):
-    n = x.shape[0]
-    rem = (-n) % mult
+    rem = (-x.shape[0]) % mult
     if rem:
         x = jnp.concatenate([x, jnp.full((rem,), value, x.dtype)])
     return x
@@ -287,23 +162,51 @@ def _pad_rows(x: jnp.ndarray, mult: int, value: float):
 
 def _prep(queries, ta, tb, tc, tq, tb_block):
     """SoA planes, padded flat: q planes (Qp,); tri planes (Tp,)."""
-    qx = _pad_rows(queries[:, 0], tq, 0.0)
-    qy = _pad_rows(queries[:, 1], tq, 0.0)
-    qz = _pad_rows(queries[:, 2], tq, 0.0)
-
-    ab = tb - ta
-    ac = tc - ta
+    qplanes = [_pad_rows(queries[:, k], tq, 0.0) for k in range(3)]
     planes = []
-    for arr, padval in ((ta, PAD_COORD), (ab, 0.0), (ac, 0.0)):
+    for arr, padval in ((ta, PAD_COORD), (tb - ta, 0.0), (tc - ta, 0.0)):
         for k in range(3):
             planes.append(_pad_rows(arr[:, k], tb_block, padval))
-    return (qx, qy, qz), planes
+    return qplanes, planes
 
 
-@functools.partial(
-    jax.jit,
-    static_argnames=("raycast_axes", "tq", "tb_block", "interpret"),
-)
+def _call(kernel, queries, ta, tb, tc, out_dtypes, *, tq, tb_block,
+          num_warps, interpret, name):
+    """One program per ``tq``-query tile; every program reads the whole soup."""
+    qplanes, tplanes = _prep(queries, ta, tb, tc, tq, tb_block)
+    Qp = qplanes[0].shape[0]
+    Tp = tplanes[0].shape[0]
+    qspec = pl.BlockSpec((tq,), lambda i: (i,))
+    tspec = pl.BlockSpec((Tp,), lambda i: (0,))
+    return pl.pallas_call(
+        functools.partial(kernel, tb=tb_block, n_tb=Tp // tb_block),
+        grid=(Qp // tq,),
+        in_specs=[qspec] * 3 + [tspec] * 9,
+        out_specs=[qspec] * len(out_dtypes),
+        out_shape=[jax.ShapeDtypeStruct((Qp,), d) for d in out_dtypes],
+        compiler_params=plgpu.CompilerParams(num_warps=num_warps,
+                                             num_stages=1),
+        backend="triton",
+        interpret=interpret,
+        name=name,
+    )(*qplanes, *tplanes)
+
+
+_STATIC = ("tq", "tb_block", "num_warps", "interpret")
+
+
+def _raycast_raw(queries, ta, tb, tc, *, raycast_axes, tq, tb_block,
+                 num_warps, interpret):
+    return _call(
+        functools.partial(_kernel_raycast, raycast_axes=raycast_axes),
+        queries, ta, tb, tc,
+        [jnp.float32] + [jnp.int32] * raycast_axes,
+        tq=tq, tb_block=tb_block, num_warps=num_warps, interpret=interpret,
+        name="m2s_sdf_raycast",
+    )
+
+
+@functools.partial(jax.jit, static_argnames=("raycast_axes",) + _STATIC)
 def sdf_raycast_pallas(
     queries: jax.Array,  # (Q, 3) f32
     ta: jax.Array,  # (T, 3)
@@ -313,125 +216,75 @@ def sdf_raycast_pallas(
     raycast_axes: int = 3,
     tq: int = DEFAULT_TQ,
     tb_block: int = DEFAULT_TB,
+    num_warps: int = DEFAULT_WARPS,
     interpret: bool = False,
 ) -> jax.Array:
     """Signed distances, raycast parity sign. Returns (Q,) f32.
 
     ``raycast_axes=0`` returns the unsigned min distance only (grid mode —
-    sign comes from the line-parity kernel). 1 = +X only (`default.rs:36`),
+    sign comes from the line-parity pass). 1 = +X only (`default.rs:36`),
     3 = best-of-3 voting (`bvh.rs:133-139`).
     """
     Q = queries.shape[0]
-    (qx, qy, qz), tplanes = _prep(queries, ta, tb, tc, tq, tb_block)
-    n_qt = qx.shape[0] // tq
-    n_tb = tplanes[0].shape[0] // tb_block
-
-    qspec = pl.BlockSpec((tq,), lambda i, j: (i,), memory_space=pltpu.VMEM)
-    tspec = pl.BlockSpec(
-        (tb_block,), lambda i, j: (j,), memory_space=pltpu.VMEM
+    outs = _raycast_raw(
+        queries, ta, tb, tc, raycast_axes=raycast_axes, tq=tq,
+        tb_block=tb_block, num_warps=num_warps, interpret=interpret,
     )
-    ospec = pl.BlockSpec((tq,), lambda i, j: (i,), memory_space=pltpu.VMEM)
-
-    out_shapes = [jax.ShapeDtypeStruct((n_qt * tq,), jnp.float32)] + [
-        jax.ShapeDtypeStruct((n_qt * tq,), jnp.int32) for _ in range(raycast_axes)
-    ]
-    outs = pl.pallas_call(
-        functools.partial(
-            _kernel_raycast,
-            raycast_axes=raycast_axes,
-            n_sub=tb_block // min(SUB, tb_block),
-            sub=min(SUB, tb_block),
-        ),
-        grid=(n_qt, n_tb),
-        in_specs=[qspec] * 3 + [tspec] * 9,
-        out_specs=[ospec] * (1 + raycast_axes),
-        out_shape=out_shapes,
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024
-        ),
-        interpret=interpret,
-    )(qx, qy, qz, *tplanes)
-
-    d2min = outs[0][:Q]
-    dist = jnp.sqrt(d2min)
+    dist = jnp.sqrt(outs[0][:Q])
     if raycast_axes == 0:
         return dist
-    counts = [o[:Q] for o in outs[1:]]
-    odd = [c % 2 == 1 for c in counts]
+    odd = [o[:Q] % 2 == 1 for o in outs[1:]]
     if raycast_axes == 1:
         inside = odd[0]
     else:
-        votes = sum(o.astype(jnp.int32) for o in odd)
-        inside = votes >= 2
+        inside = sum(o.astype(jnp.int32) for o in odd) >= 2
     return jnp.where(inside, -dist, dist)
 
 
-@functools.partial(
-    jax.jit, static_argnames=("raycast_axes", "tq", "tb_block", "interpret")
-)
+@functools.partial(jax.jit, static_argnames=("raycast_axes",) + _STATIC)
 def sdf_raycast_parts_pallas(
     queries, ta, tb, tc, *, raycast_axes: int = 3, tq: int = DEFAULT_TQ,
-    tb_block: int = DEFAULT_TB, interpret: bool = False,
+    tb_block: int = DEFAULT_TB, num_warps: int = DEFAULT_WARPS,
+    interpret: bool = False,
 ):
     """Pre-vote kernel outputs: (unsigned dist (Q,), crossing counts
     (Q, axes) int32). For sharded reductions: per-shard counts are ``psum``ed
     over the triangle axis and distances min-reduced BEFORE the parity vote
     (parallel/sharding.py)."""
     Q = queries.shape[0]
-    dist_and_counts = _raycast_raw(
+    outs = _raycast_raw(
         queries, ta, tb, tc, raycast_axes=max(raycast_axes, 1), tq=tq,
-        tb_block=tb_block, interpret=interpret,
+        tb_block=tb_block, num_warps=num_warps, interpret=interpret,
     )
-    dist = jnp.sqrt(dist_and_counts[0][:Q])
-    counts = jnp.stack([o[:Q] for o in dist_and_counts[1:]], axis=-1)
+    dist = jnp.sqrt(outs[0][:Q])
+    counts = jnp.stack([o[:Q] for o in outs[1:]], axis=-1)
     return dist, counts
 
 
-def _raycast_raw(queries, ta, tb, tc, *, raycast_axes, tq, tb_block,
-                 interpret):
-    (qx, qy, qz), tplanes = _prep(queries, ta, tb, tc, tq, tb_block)
-    n_qt = qx.shape[0] // tq
-    n_tb = tplanes[0].shape[0] // tb_block
-    qspec = pl.BlockSpec((tq,), lambda i, j: (i,), memory_space=pltpu.VMEM)
-    tspec = pl.BlockSpec(
-        (tb_block,), lambda i, j: (j,), memory_space=pltpu.VMEM
+@functools.partial(jax.jit, static_argnames=_STATIC)
+def sdf_normal_champions_pallas(queries, ta, tb, tc, *, tq: int = DEFAULT_TQ,
+                                tb_block: int = DEFAULT_TB,
+                                num_warps: int = DEFAULT_WARPS,
+                                interpret: bool = False):
+    """Pre-combination champions (min positive, min |negative|) per query —
+    for sharded reductions where champions are min-combined across triangle
+    shards before the single `compare_distances` tie-break."""
+    Q = queries.shape[0]
+    pos2, neg2 = _call(
+        _kernel_normal, queries, ta, tb, tc, [jnp.float32] * 2,
+        tq=tq, tb_block=tb_block, num_warps=num_warps, interpret=interpret,
+        name="m2s_sdf_normal",
     )
-    ospec = pl.BlockSpec((tq,), lambda i, j: (i,), memory_space=pltpu.VMEM)
-    out_shapes = [jax.ShapeDtypeStruct((n_qt * tq,), jnp.float32)] + [
-        jax.ShapeDtypeStruct((n_qt * tq,), jnp.int32)
-        for _ in range(raycast_axes)
-    ]
-    return pl.pallas_call(
-        functools.partial(
-            _kernel_raycast,
-            raycast_axes=raycast_axes,
-            n_sub=tb_block // min(SUB, tb_block),
-            sub=min(SUB, tb_block),
-        ),
-        grid=(n_qt, n_tb),
-        in_specs=[qspec] * 3 + [tspec] * 9,
-        out_specs=[ospec] * (1 + raycast_axes),
-        out_shape=out_shapes,
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024
-        ),
-        interpret=interpret,
-    )(qx, qy, qz, *tplanes)
+    minpos = jnp.sqrt(jnp.minimum(pos2[:Q], F32_MAX))
+    minneg = jnp.sqrt(jnp.minimum(neg2[:Q], F32_MAX))
+    return minpos, minneg
 
 
-@functools.partial(
-    jax.jit, static_argnames=("tq", "tb_block", "interpret")
-)
-def sdf_normal_pallas(
-    queries: jax.Array,
-    ta: jax.Array,
-    tb: jax.Array,
-    tc: jax.Array,
-    *,
-    tq: int = DEFAULT_TQ,
-    tb_block: int = DEFAULT_TB,
-    interpret: bool = False,
-) -> jax.Array:
+@functools.partial(jax.jit, static_argnames=_STATIC)
+def sdf_normal_pallas(queries, ta, tb, tc, *, tq: int = DEFAULT_TQ,
+                      tb_block: int = DEFAULT_TB,
+                      num_warps: int = DEFAULT_WARPS,
+                      interpret: bool = False) -> jax.Array:
     """Signed distances with the normal sign method. Returns (Q,) f32.
 
     Champion semantics match :mod:`..keyed`: the kernel reduces (min pos²,
@@ -440,75 +293,8 @@ def sdf_normal_pallas(
     """
     from ..keyed import combine_champions
 
-    Q = queries.shape[0]
-    (qx, qy, qz), tplanes = _prep(queries, ta, tb, tc, tq, tb_block)
-    n_qt = qx.shape[0] // tq
-    n_tb = tplanes[0].shape[0] // tb_block
-
-    qspec = pl.BlockSpec((tq,), lambda i, j: (i,), memory_space=pltpu.VMEM)
-    tspec = pl.BlockSpec(
-        (tb_block,), lambda i, j: (j,), memory_space=pltpu.VMEM
-    )
-    ospec = pl.BlockSpec((tq,), lambda i, j: (i,), memory_space=pltpu.VMEM)
-
-    pos2, neg2 = pl.pallas_call(
-        functools.partial(
-            _kernel_normal,
-            n_sub=tb_block // min(SUB, tb_block),
-            sub=min(SUB, tb_block),
-        ),
-        grid=(n_qt, n_tb),
-        in_specs=[qspec] * 3 + [tspec] * 9,
-        out_specs=[ospec] * 2,
-        out_shape=[
-            jax.ShapeDtypeStruct((n_qt * tq,), jnp.float32),
-            jax.ShapeDtypeStruct((n_qt * tq,), jnp.float32),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024
-        ),
+    minpos, minneg = sdf_normal_champions_pallas(
+        queries, ta, tb, tc, tq=tq, tb_block=tb_block, num_warps=num_warps,
         interpret=interpret,
-    )(qx, qy, qz, *tplanes)
-
-    minpos = jnp.sqrt(jnp.minimum(pos2[:Q], F32_MAX))
-    minneg = jnp.sqrt(jnp.minimum(neg2[:Q], F32_MAX))
+    )
     return combine_champions(minpos, minneg)
-
-
-@functools.partial(jax.jit, static_argnames=("tq", "tb_block", "interpret"))
-def sdf_normal_champions_pallas(queries, ta, tb, tc, *, tq: int = DEFAULT_TQ,
-                                tb_block: int = DEFAULT_TB,
-                                interpret: bool = False):
-    """Pre-combination champions (min positive, min |negative|) per query —
-    for sharded reductions where champions are min-combined across triangle
-    shards before the single `compare_distances` tie-break."""
-    Q = queries.shape[0]
-    (qx, qy, qz), tplanes = _prep(queries, ta, tb, tc, tq, tb_block)
-    n_qt = qx.shape[0] // tq
-    n_tb = tplanes[0].shape[0] // tb_block
-    qspec = pl.BlockSpec((tq,), lambda i, j: (i,), memory_space=pltpu.VMEM)
-    tspec = pl.BlockSpec(
-        (tb_block,), lambda i, j: (j,), memory_space=pltpu.VMEM
-    )
-    ospec = pl.BlockSpec((tq,), lambda i, j: (i,), memory_space=pltpu.VMEM)
-    pos2, neg2 = pl.pallas_call(
-        functools.partial(
-            _kernel_normal,
-            n_sub=tb_block // min(SUB, tb_block),
-            sub=min(SUB, tb_block),
-        ),
-        grid=(n_qt, n_tb),
-        in_specs=[qspec] * 3 + [tspec] * 9,
-        out_specs=[ospec] * 2,
-        out_shape=[
-            jax.ShapeDtypeStruct((n_qt * tq,), jnp.float32),
-            jax.ShapeDtypeStruct((n_qt * tq,), jnp.float32),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024
-        ),
-        interpret=interpret,
-    )(qx, qy, qz, *tplanes)
-    minpos = jnp.sqrt(jnp.minimum(pos2[:Q], F32_MAX))
-    minneg = jnp.sqrt(jnp.minimum(neg2[:Q], F32_MAX))
-    return minpos, minneg

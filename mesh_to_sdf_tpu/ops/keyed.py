@@ -6,7 +6,7 @@ ulps / 1e-6) equal magnitude, the **positive** one wins (a point is inside only
 if it is inside *all* nearest triangles); otherwise the smaller magnitude wins.
 
 A sequential fuzzy fold is order-dependent and hostile to parallel reduction.
-The TPU-native formulation keeps **two champions** — the smallest positive
+The array formulation keeps **two champions** — the smallest positive
 magnitude and the smallest negative magnitude — both plain ``min`` reductions
 (associative, shardable via ``psum``-min), and applies the fuzzy
 prefer-positive rule once, between the two champions. This is exactly the

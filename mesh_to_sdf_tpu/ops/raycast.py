@@ -1,6 +1,6 @@
 """Grid raycast sign kernel: per-axis line parity.
 
-TPU-native replacement for the reference's BVH raycast phase
+Array replacement for the reference's BVH raycast phase
 (`mesh_to_sdf/src/generate/grid.rs:560-684`): one ray per boundary cell of the
 three negative grid faces, along +X/+Y/+Z. The reference traverses a BVH per
 ray and bumps an atomic counter for every cell in front of each hit

@@ -1,7 +1,7 @@
 """Multi-device grid SDF: CPT sharded over x-slabs of the grid.
 
 The distributed redesign of the flagship pipeline (SURVEY.md §2.3; BASELINE
-config 5 — big grids sharded across a pod slice). Layout: the grid's x axis
+config 5 — big grids sharded across the GPUs of a host). Layout: the grid's x axis
 is split into equal slabs across the mesh axis ``cells``; triangles are
 replicated (the soup is tiny next to a big grid; a ``tris``-sharded variant
 all-gathers first).
@@ -23,7 +23,6 @@ Vote semantics unchanged (≥2 of 3 odd ⇒ inside, `grid.rs:622-639`).
 from __future__ import annotations
 
 import functools
-from typing import Optional, Tuple
 
 import jax
 import jax.numpy as jnp
@@ -33,7 +32,7 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from ..grid import Grid
 from ..types import F32_MAX, SignMethod
 from ..ops import cpt as cpt_mod
-from ..ops import geometry, raycast as raycast_mod
+from ..ops import raycast as raycast_mod
 from .mesh import CELL_AXIS
 
 
@@ -61,35 +60,11 @@ def _merge_boundary(state: cpt_mod.CptState, nb, position: int, centers):
 
 
 def _x_sweeps(state, centers):
-    """±x sweeps only (local)."""
-    # Full candidate window for halo repair (see _x_sweeps_pallas).
+    """±x sweeps only (local; the full candidate window for halo repair)."""
     out = cpt_mod._sweep_axis0(state, centers)
     rev = cpt_mod.CptState(*[getattr(out, n)[::-1] for n in out._fields])
     rev = cpt_mod._sweep_axis0(rev, centers[::-1])
     return cpt_mod.CptState(*[getattr(rev, n)[::-1] for n in rev._fields])
-
-
-def _x_sweeps_pallas(state: cpt_mod.CptState, slab: Grid):
-    """±x sweeps via the VMEM-carry Pallas kernel (TPU halo re-sweeps)."""
-    from ..ops.kernels import pallas_sweep
-
-    fc = jnp.asarray(slab.first_cell, jnp.float32)
-    cs = jnp.asarray(slab.cell_size, jnp.float32)
-    # Kernel layout: vertex volumes channel-second (n0, 9, n1, n2).
-    tup = (
-        state.d1, jnp.transpose(state.v1, (0, 3, 1, 2)), state.i1,
-        state.d2, jnp.transpose(state.v2, (0, 3, 1, 2)), state.i2,
-    )
-    # Halo re-sweeps are a few
-    # slices — the repair quality matters more than the 1.8× eval cut.
-    for rev in (False, True):
-        tup = pallas_sweep.sweep_oriented(
-            *tup, rev, fc, cs, comp0=0, comp1=1, comp2=2,
-        )
-    return cpt_mod.CptState(
-        tup[0], jnp.transpose(tup[1], (0, 2, 3, 1)), tup[2],
-        tup[3], jnp.transpose(tup[4], (0, 2, 3, 1)), tup[5],
-    )
 
 
 def _slice_state(state, position: int):
@@ -106,20 +81,13 @@ def generate_grid_sdf_sharded_cpt(
     sign_method: SignMethod = SignMethod.RAYCAST,
     *,
     halo_rounds: int = 2,
-    use_pallas: Optional[bool] = None,
 ) -> jax.Array:
     """Distributed `generate_grid_sdf` (CPT engine), x-slab sharded.
 
     vertices (V,3)/faces (M,3) host arrays; grid.cell_count[0] must divide
     the mesh's ``cells`` axis size. Returns the full (nx*ny*nz,) f32 SDF
     (x-sharded across devices until materialized).
-
-    ``use_pallas`` (default: auto — True on TPU): run each slab's CPT sweeps
-    through the VMEM-carry Pallas kernel, matching single-chip throughput
-    per shard.
     """
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
     n_dev = mesh.shape[CELL_AXIS]
     nx, ny, nz = grid.cell_count
     if nx % n_dev:
@@ -165,14 +133,9 @@ def generate_grid_sdf_sharded_cpt(
         # sweeps — the reduced runner-up schedule on top pushes far-field
         # divergence from the single-device engine past the 3e-3
         # consistency budget (tests/test_grid_sharded.py).
-        if use_pallas:
-            dist, tri_idx = cpt_mod.closest_point_grid_pallas(
-                slab, ta, tb, tc, seed=seed
-            )
-        else:
-            dist, tri_idx = cpt_mod.closest_point_grid(
-                slab, ta, tb, tc, seed=seed
-            )
+        dist, tri_idx = cpt_mod.closest_point_grid(
+            slab, ta, tb, tc, seed=seed
+        )
 
         # Rebuild the full CPT state for halo exchange: re-seed + re-derive
         # vertex volumes from the final indices (cheaper than carrying state
@@ -225,52 +188,21 @@ def generate_grid_sdf_sharded_cpt(
             from_right = masknb(from_right, is_last)
             state = _merge_boundary(state, from_left, 0, centers[0])
             state = _merge_boundary(state, from_right, -1, centers[-1])
-            if use_pallas:
-                state = _x_sweeps_pallas(state, slab)
-            else:
-                state = _x_sweeps(state, centers)
+            state = _x_sweeps(state, centers)
 
         dist = state.d1
 
         if sign_method == SignMethod.RAYCAST:
-            from ..ops.brute import pad_tri_blocks
-
+            # All three parities are slab-local and exact: triangles are
+            # replicated, so a ray cast from this slab's face sees every
+            # crossing to +inf — each cell's suffix count needs no
+            # cross-device exchange.
             oa, ob, oc = orig[0], orig[1], orig[2]
             valid = jnp.ones((oa.shape[0],), bool)
-            oa, ob, oc, valid, blk = pad_tri_blocks(oa, ob, oc, valid, 256)
-            # y/z parities: slab-local, exact.
-            odd_y = raycast_mod._axis_parity(
-                slab, 1, oa, ob, oc, valid, blk, 1024
+            inside = raycast_mod.grid_inside_mask(
+                slab, oa, ob, oc, valid, tri_block=256
             )
-            odd_z = raycast_mod._axis_parity(
-                slab, 2, oa, ob, oc, valid, blk, 1024
-            )
-            # x parity is slab-local too: triangles are replicated, so a
-            # ray cast from this slab's face sees every crossing to +inf —
-            # the suffix count per cell needs no cross-device exchange.
-            origins, lshape = raycast_mod.face_origins(slab, 0)
-            inside2d, t = geometry.ray_triangle_aligned_2d(
-                origins[:, None, :], oa[None], ob[None], oc[None], 0
-            )
-            hit = inside2d & (t > 0.0) & valid[None, :]
-            csx = slab.cell_size[0]
-            bucket = jnp.where(hit, jnp.floor(t / csx), jnp.inf)
-            cell_f = jnp.arange(slab_nx, dtype=jnp.float32)
-            srt = jnp.sort(bucket, axis=1)
-            n_hits = jnp.sum(hit, axis=1).astype(jnp.int32)  # (L,)
-            below = jax.vmap(
-                lambda row: jnp.searchsorted(row, cell_f, side="left")
-            )(srt).astype(jnp.int32)
-            counts = n_hits[:, None] - below  # (L, slab_nx) full suffix
-            odd_x = raycast_mod.unrotate_axis(
-                counts % 2 == 1, 0, lshape, slab_nx
-            )
-            votes = (
-                odd_x.astype(jnp.int32)
-                + odd_y.astype(jnp.int32)
-                + odd_z.astype(jnp.int32)
-            )
-            dist = jnp.where(votes >= 2, -dist, dist)
+            dist = jnp.where(inside, -dist, dist)
         else:
             dist = cpt_mod.normal_sign_from_idx(
                 slab, tris[0], tris[1], tris[2], dist, state.i1

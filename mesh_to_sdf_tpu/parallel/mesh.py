@@ -1,4 +1,4 @@
-"""Device-mesh construction over ICI/DCN.
+"""Device-mesh construction.
 
 The reference has no distributed anything (SURVEY.md §2.3): rayon threads in
 one process. Here scaling is first-class: a 2-D logical mesh with axes
@@ -10,9 +10,10 @@ one process. Here scaling is first-class: a 2-D logical mesh with axes
   min-reduced across shards (the analog of "the whole mesh visible to every
   thread" made scalable).
 
-On multi-host pods, lay ``tris`` along ICI-adjacent devices (the champion
-all-gather is small; the triangle all-gather is the bulk transfer) and let
-``cells`` cross DCN (embarrassingly parallel).
+Within one host every GPU reaches every other over NVLink at the same rate,
+so the axes follow the algorithm alone. Across hosts, keep ``tris`` inside
+a host (the triangle all-gather is the bulk transfer) and let ``cells``
+cross hosts (embarrassingly parallel).
 """
 from __future__ import annotations
 
@@ -30,10 +31,10 @@ TRI_AXIS = "tris"
 def initialize_distributed(coordinator: Optional[str] = None,
                            num_processes: Optional[int] = None,
                            process_id: Optional[int] = None) -> None:
-    """Best-effort ``jax.distributed.initialize`` for multi-host pods.
+    """Best-effort ``jax.distributed.initialize`` for multi-host runs.
 
-    No-op when single-process (the common dev case); on TPU pods the args are
-    auto-detected from the environment.
+    No-op when single-process (the common dev case); otherwise pass the
+    coordinator address, process count and this process's id.
     """
     try:
         jax.distributed.initialize(coordinator, num_processes, process_id)

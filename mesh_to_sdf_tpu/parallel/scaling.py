@@ -1,11 +1,10 @@
 """Weak-scaling efficiency harness.
 
 The reference is single-process (SURVEY.md §2.3); its only scaling story is
-rayon splitting cells across threads (`generate/grid.rs:318-339`). The TPU
-framework's north star (BASELINE.md) is ≥80% weak-scaling efficiency going
-from 1 chip to N: grow the grid's sweep axis with the device count so every
-device owns a constant slab of cells, and measure how far the per-step wall
-time drifts from the 1-device time.
+rayon splitting cells across threads (`generate/grid.rs:318-339`). Weak
+scaling here grows the grid's sweep axis with the device count so every
+device owns a constant slab of cells, and measures how far the per-step
+wall time drifts from the 1-device time.
 
 The harness runs the full x-slab-sharded CPT pipeline
 (`parallel.grid_sharded.generate_grid_sdf_sharded_cpt`: binned seeds →
@@ -16,13 +15,10 @@ triangle broadcast), not a synthetic all-reduce.
 On the CPU virtual mesh (`--xla_force_host_platform_device_count`) the
 numbers validate *plumbing only* — all "devices" share one socket's memory
 bandwidth, so efficiency is pessimistic and results carry
-``non_predictive: true``. On a real TPU slice the same entry points produce
-the honest number:
+``non_predictive: true``. On the GPUs of one host the same entry point
+produces the real number:
 
-    # single host, all local chips:
     python -m mesh_to_sdf_tpu bench --scaling
-    # multi-host pod (one command per host; jax.distributed stitches):
-    python -m mesh_to_sdf_tpu bench --scaling --distributed
 """
 from __future__ import annotations
 
@@ -60,14 +56,13 @@ def measure_weak_scaling(
     repeats: int = 3,
     device_counts: Optional[Sequence[int]] = None,
     sign_method: SignMethod = SignMethod.RAYCAST,
-    use_pallas: Optional[bool] = None,
 ) -> dict:
     """Time the sharded grid pipeline at ``nx = base_nx × n`` for growing
     device counts ``n`` (constant ``base_nx·ny·nz`` cells per device).
 
     Returns a report dict::
 
-        {"platform": "tpu", "non_predictive": False,
+        {"platform": "gpu", "non_predictive": False,
          "cells_per_device": 1048576, "tris": ...,
          "rows": [{"devices": n, "nx": nx, "median_ms": ..., "min_ms": ...,
                    "cells_per_s_per_device": ..., "efficiency_pct": ...}]}
@@ -94,7 +89,6 @@ def measure_weak_scaling(
         def run():
             out = generate_grid_sdf_sharded_cpt(
                 verts, faces, grid, dmesh, sign_method,
-                use_pallas=use_pallas,
             )
             jax.block_until_ready(out)
             return out
@@ -122,8 +116,8 @@ def measure_weak_scaling(
     return {
         "platform": platform,
         # CPU virtual devices share one host's memory bandwidth: the
-        # numbers exercise the collectives but do not predict TPU scaling.
-        "non_predictive": platform != "tpu",
+        # numbers exercise the collectives but predict no device scaling.
+        "non_predictive": platform == "cpu",
         "cells_per_device": base_nx * ny * nz,
         "tris": int(len(faces)),
         "sign_method": sign_method.value,

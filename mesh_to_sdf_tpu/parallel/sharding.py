@@ -1,6 +1,6 @@
 """Sharded SDF generation and training: shard_map over the (cells, tris) mesh.
 
-Collective layout (SURVEY.md §2.3 "mandated TPU equivalents"):
+Collective layout (SURVEY.md §2.3):
 
 - query points / grid cells sharded on ``cells`` (pure data parallelism);
 - triangles sharded on ``tris``; per-shard champions are combined by a tiny
@@ -22,8 +22,8 @@ import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..grid import Grid
-from ..types import F32_MAX, SignMethod
-from ..ops import autodiff
+from ..types import SignMethod, Strategy
+from ..ops import autodiff, dense
 from ..ops.keyed import combine_champions
 from ..ops import geometry
 from .mesh import CELL_AXIS, TRI_AXIS, pad_for_axis
@@ -46,8 +46,8 @@ def _shard_ray_counts(queries, vertices, tri_idx, raycast_axes):
     return jnp.stack(counts, axis=-1)
 
 
-#: Vertex sentinel neutralizing padded (-1) triangle rows in the Pallas
-#: kernels: distance ~1e18 (never wins), no ray hits.
+#: Vertex sentinel neutralizing padded (-1) triangle rows in the Triton
+#: kernel: distance ~1e18 (never wins), no ray hits.
 _FAR = 1.0e18
 
 
@@ -61,11 +61,12 @@ def _pallas_safe_tris(vertices, tri_idx):
     return ta, tb, tc
 
 
-def _make_champions_fn(block: int, use_pallas: bool):
-    """(vertices, tri_idx, queries) -> (minpos, minneg): Pallas kernel as the
-    primal (serving / inference speed), scan engine + envelope VJP under
-    differentiation (the kernel does not expose argmin residuals)."""
-    if not use_pallas:
+def _make_champions_fn(block: int):
+    """(vertices, tri_idx, queries) -> (minpos, minneg): the dense engine's
+    kernel as the primal where it runs (serving / inference speed), scan
+    engine + envelope VJP under differentiation (the kernel does not expose
+    argmin residuals)."""
+    if dense.dense_strategy() != Strategy.PALLAS:
         return lambda v, t, q: autodiff.signed_champion_distances(v, t, q, block)
 
     from ..ops.kernels import pallas_sdf
@@ -85,11 +86,11 @@ def _make_champions_fn(block: int, use_pallas: bool):
     return champs
 
 
-def _make_dist_counts_fn(block: int, raycast_axes: int, use_pallas: bool):
-    """(vertices, tri_idx, queries) -> (dist, counts (Q, axes)). The Pallas
+def _make_dist_counts_fn(block: int, raycast_axes: int):
+    """(vertices, tri_idx, queries) -> (dist, counts (Q, axes)). The kernel
     primal fuses distance + 3-axis parity in ONE triangle pass; counts are
     stop-grad (piecewise constant sign)."""
-    if not use_pallas:
+    if dense.dense_strategy() != Strategy.PALLAS:
         def fn(vertices, tri_idx, queries):
             d = autodiff.unsigned_min_distance(vertices, tri_idx, queries, block)
             counts = _shard_ray_counts(queries, vertices, tri_idx, raycast_axes)
@@ -120,22 +121,19 @@ def _make_dist_counts_fn(block: int, raycast_axes: int, use_pallas: bool):
 
 
 def sharded_sdf_fn(mesh: Mesh, sign_method: SignMethod, *, raycast_axes: int = 3,
-                   block: int = 256, use_pallas: Optional[bool] = None):
+                   block: int = 256):
     """Build a differentiable sharded SDF function
     ``f(vertices (V,3) replicated, tri_idx (M,3) sharded[tris], queries (Q,3)
     sharded[cells]) -> (Q,) sharded[cells]``.
 
     M must divide mesh.shape[tris]; Q must divide mesh.shape[cells].
 
-    ``use_pallas`` (default: auto — True on TPU): each shard's forward runs
-    the fused Pallas kernels (same single-chip kernel the unsharded path
-    uses), so per-chip throughput matches the single-chip numbers; under
-    differentiation the scan engine + envelope VJP run instead.
+    Each shard's forward runs the dense engine of :mod:`..ops.dense` (the
+    same kernel the unsharded path uses on the GPU); under differentiation
+    the scan engine + envelope VJP run instead.
     """
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
-    champs_fn = _make_champions_fn(block, use_pallas)
-    dist_counts_fn = _make_dist_counts_fn(block, raycast_axes, use_pallas)
+    champs_fn = _make_champions_fn(block)
+    dist_counts_fn = _make_dist_counts_fn(block, raycast_axes)
 
     @functools.partial(
         jax.shard_map,
@@ -175,7 +173,6 @@ def generate_sdf_sharded(
     *,
     raycast_axes: int = 3,
     block: int = 256,
-    use_pallas: Optional[bool] = None,
 ) -> jax.Array:
     """Multi-device `generate_sdf`. Host-pads inputs, places shards, computes.
 
@@ -194,7 +191,7 @@ def generate_sdf_sharded(
     q_np = np.concatenate([q_np, np.zeros((Qpad - Q, 3), np.float32)])
 
     fn = sharded_sdf_fn(mesh, sign_method, raycast_axes=raycast_axes,
-                        block=block, use_pallas=use_pallas)
+                        block=block)
     v = jax.device_put(vertices, NamedSharding(mesh, P()))
     t = jax.device_put(jnp.asarray(tri_np), NamedSharding(mesh, P(TRI_AXIS)))
     q = jax.device_put(jnp.asarray(q_np), NamedSharding(mesh, P(CELL_AXIS)))
@@ -210,27 +207,21 @@ def generate_sdf_sharded_culled(
     *,
     raycast_axes: int = 3,
     st: Optional[int] = None,
-    nb_sub: Optional[int] = None,
-    nb_table: Optional[int] = None,
-    use_pallas: Optional[bool] = None,
 ) -> jax.Array:
     """Multi-device CULLED `generate_sdf` (raycast sign): queries sharded on
     ``cells``; the Morton block index and sign grid are built once on the
     host and replicated (≙ the reference building one R-tree + BVH shared
     by all rayon workers, `rtree_bvh.rs:108-119`). Each shard runs the
-    fully-fused block kernel (distance + anchor-segment sign); the few
-    certificate-failed queries re-route through the exact sharded brute
-    path — so the result is exact everywhere.
+    gathered pass (distance + anchor-segment sign) with its widened retry;
+    the few certificate-failed queries re-route through the exact sharded
+    dense path — so the result is exact everywhere.
     """
     from ..ops import culling
-    from ..ops.kernels import pallas_culled
     from ..query import (
         _block_index_cached, _sign_grid_cached, prepare_triangles,
     )
     from ..topology import Topology as _T
 
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
     n_dev = mesh.shape[CELL_AXIS]
     f_np = np.asarray(faces, np.int64).reshape(-1, 3)
     topo = _T.triangle_list(f_np.reshape(-1))
@@ -240,15 +231,12 @@ def generate_sdf_sharded_culled(
 
     q_np = np.asarray(query_points, np.float32)
     Q = q_np.shape[0]
-    qt = pallas_culled.DEFAULT_QT
     if st is None:
-        st = pallas_culled.DEFAULT_ST if Q >= 262_144 * n_dev else 32
-    nb_sub = nb_sub or pallas_culled.DEFAULT_NB_SUB
-    nb_table = nb_table or pallas_culled.DEFAULT_NB_TABLE
-    Qpad = pad_for_axis(max(Q, 1), mesh, CELL_AXIS, qt)
+        st = 64 if Q >= 262_144 * n_dev else 32
+    Qpad = pad_for_axis(max(Q, 1), mesh, CELL_AXIS, st * 64)
     # Edge-pad (repeat the last real query), NOT zeros: origin-point padding
     # would join Morton sub-tiles, inflate their radii and loosen every
-    # certificate sharing a sub-tile (same hazard _culled_blocks_impl fixed).
+    # certificate sharing a sub-tile.
     if Q > 0:
         fill = np.repeat(q_np[-1:], Qpad - Q, axis=0)
     else:
@@ -263,10 +251,8 @@ def generate_sdf_sharded_culled(
         check_vma=False,
     )
     def run(bi_r, sg_inside, q_shard):
-        signed, flag, _work = culling._culled_blocks_signed_impl(
-            q_shard, bi_r, sg_inside, sg.grid,
-            qt=qt, st=st, nb_sub=nb_sub, nb_table=nb_table,
-            interpret=not use_pallas,
+        signed, flag, _work = culling._gather_widened(
+            q_shard, bi_r, sg_inside, sg.grid, st=st, kg=culling.DEFAULT_KG,
         )
         return signed, flag
 
@@ -281,7 +267,6 @@ def generate_sdf_sharded_culled(
         sub = generate_sdf_sharded(
             vertices, f_np.astype(np.int32), q_np[bad], mesh,
             SignMethod.RAYCAST, raycast_axes=raycast_axes,
-            use_pallas=use_pallas,
         )
         signed = signed.at[jnp.asarray(bad)].set(sub)
     return signed

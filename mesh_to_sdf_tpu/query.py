@@ -1,8 +1,8 @@
 """`generate_sdf` — signed distances at arbitrary query points.
 
-Capability parity with the reference entry point (`mesh_to_sdf/src/lib.rs:291-311`),
-re-designed TPU-first: the acceleration-structure dispatch becomes kernel
-strategy selection (see :class:`mesh_to_sdf_tpu.types.Strategy`).
+Capability parity with the reference entry point (`mesh_to_sdf/src/lib.rs:291-311`):
+the acceleration-structure dispatch becomes engine strategy selection (see
+:class:`mesh_to_sdf_tpu.types.Strategy`).
 """
 from __future__ import annotations
 
@@ -14,7 +14,7 @@ import numpy as np
 
 from .topology import Topology, as_points, gather_triangle_vertices
 from .types import AccelerationMethod, SignMethod, Strategy
-from .ops import brute
+from .ops import brute, dense
 
 
 def _resolve(acceleration, sign_method):
@@ -25,14 +25,6 @@ def _resolve(acceleration, sign_method):
     if sign_method is None:
         sign_method = SignMethod.RAYCAST
     return acceleration, sign_method
-
-
-def _auto_strategy() -> Strategy:
-    """AUTO → the Pallas kernel on TPU (the XLA brute path materializes pair
-    temporaries to HBM and is ~30-60x slower there); fused-XLA elsewhere."""
-    import jax
-
-    return Strategy.PALLAS if jax.default_backend() == "tpu" else Strategy.XLA
 
 
 def prepare_triangles(vertices, topology: Optional[Topology], tri_block: int):
@@ -65,6 +57,10 @@ _SIGN_GRID_CACHE_MAX = 4
 #: Below this many queries the O(Q·T) parity sweep beats building a grid
 #: (the grid is cached per mesh, so the bar is low).
 SIGN_GRID_MIN_QUERIES = 4096
+#: AUTO routes RAYCAST batches of at least SIGN_GRID_MIN_QUERIES queries to
+#: CULLED from this many triangles up (dense vs CULLED on the H100,
+#: PERF.md).
+CULLED_MIN_TRIS = 32768
 
 
 def _sign_grid_cached(ta, tb, tc, valid, n_tris: int):
@@ -90,7 +86,7 @@ def _sign_grid_cached(ta, tb, tc, valid, n_tris: int):
     return sg
 
 
-#: Content-hashed cache of Morton block indexes (the culled kernel's
+#: Content-hashed cache of Morton block indexes (the CULLED engine's
 #: per-mesh spatial structure, ≙ the reference's R-tree bulk_load).
 _BLOCK_INDEX_CACHE: dict = {}
 _BLOCK_INDEX_CACHE_MAX = 4
@@ -136,7 +132,7 @@ def _parity_bins_cached(ta, tb, tc, n_tris: int):
 def _block_index_cached(ta, tb, tc, n_tris: int):
     import zlib
 
-    from .ops.kernels import pallas_culled
+    from .ops import block_index
 
     key = (
         zlib.adler32(np.asarray(ta[:n_tris]).tobytes()),
@@ -147,7 +143,7 @@ def _block_index_cached(ta, tb, tc, n_tris: int):
     )
     bi = _BLOCK_INDEX_CACHE.get(key)
     if bi is None:
-        bi = pallas_culled.build_block_index(
+        bi = block_index.build_block_index(
             np.asarray(ta[:n_tris]), np.asarray(tb[:n_tris]),
             np.asarray(tc[:n_tris]),
         )
@@ -186,31 +182,20 @@ def generate_sdf(
     ta, tb, tc, valid, n_tris = prepare_triangles(vertices, topology, tri_block)
 
     if strategy == Strategy.AUTO:
-        strategy = _auto_strategy()
+        strategy = dense.dense_strategy()
         if (strategy == Strategy.PALLAS and sign == SignMethod.RAYCAST
-                and Q >= SIGN_GRID_MIN_QUERIES and n_tris >= 32768):
-            # Large batches on big meshes: the culled engine (block kernel +
-            # sign-grid transfer) beats the O(Q·T) fused sweep — measured
-            # 2.4 s vs 3.9 s at 1M queries × 95k tris (BENCH.md); at small
-            # triangle counts the fused sweep's O(Q·T) is already cheap.
+                and Q >= SIGN_GRID_MIN_QUERIES and n_tris >= CULLED_MIN_TRIS):
+            # Large batches on big meshes: the CULLED engine beats the
+            # O(Q·T) dense kernel (threshold measured on the H100, PERF.md).
             strategy = Strategy.CULLED
+    if strategy == Strategy.PALLAS:
+        dense.require_kernel()
 
     if strategy == Strategy.PALLAS and n_tris > 0:
-        from .ops.kernels import pallas_sdf
-
-        qj = jnp.asarray(q)
-        # The kernel does its own tail padding (PAD_COORD sentinel); strip the
-        # zero-triangle padding added for the XLA path. Off-TPU, run the
-        # kernel through the Pallas interpreter (slow but correct).
-        interp = jax.default_backend() != "tpu"
-        ra, rb, rc = ta[:n_tris], tb[:n_tris], tc[:n_tris]
-        if sign == SignMethod.NORMAL:
-            return pallas_sdf.sdf_normal_pallas(
-                qj, ra, rb, rc, interpret=interp
-            )[:Q]
-        return pallas_sdf.sdf_raycast_pallas(
-            qj, ra, rb, rc, raycast_axes=raycast_axes, interpret=interp
-        )[:Q]
+        return dense.signed_distance(
+            jnp.asarray(q), ta, tb, tc, valid, sign_method=sign,
+            raycast_axes=raycast_axes, n_valid=n_tris,
+        )
 
     if strategy == Strategy.CULLED and n_tris > 0:
         from .ops import culling
@@ -223,19 +208,17 @@ def generate_sdf(
             # Per-mesh cached sign structures (≙ the reference's BVH build
             # phase, `rtree_bvh.rs:108-119`): the coarse sign grid anchors
             # every query's sign (transfer for far queries; fused anchor-
-            # segment parity in the block kernel for the shell). Small
+            # segment parity in the gathered pass for the shell). Small
             # batches keep the per-query sweep (the builds wouldn't
             # amortize).
             sign_grid = _sign_grid_cached(ta, tb, tc, valid, n_tris)
-            # Exact tile-binned parity tables (cached per mesh): used as the
-            # whole-batch sign pass for small batches (≤ PARITY_ALL_MAX) and
-            # as the near-shell fallback of the sign-grid transfer otherwise
-            # (culling.query_sdf_culled / signs_from_grid).
+            # Exact tile-binned parity tables (cached per mesh): the
+            # near-shell fallback of the sign-grid transfer
+            # (culling.signs_from_grid).
             parity_bins = _parity_bins_cached(ta, tb, tc, n_tris)
-            if jax.default_backend() == "tpu":
-                # Morton block index (≙ R-tree bulk_load) feeding the
-                # scalar-prefetch distance kernel.
-                block_index = _block_index_cached(ta, tb, tc, n_tris)
+            # Morton block index (≙ R-tree bulk_load) feeding the gathered
+            # per-sub-tile pass.
+            block_index = _block_index_cached(ta, tb, tc, n_tris)
         return culling.query_sdf_culled(
             jnp.asarray(q), ta, tb, tc, valid,
             sign_method=sign, raycast_axes=raycast_axes,

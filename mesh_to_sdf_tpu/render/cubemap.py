@@ -7,7 +7,7 @@ fit to the model bbox; the raymarcher then samples the six faces with
 direction-visibility weights and a depth-based fallback
 (`shaders/draw_raymarching.wgsl:364-441`) to texture SDF surface points.
 
-TPU-native redesign: no rasterizer — each face is an axis-aligned
+Array redesign: no rasterizer — each face is an axis-aligned
 ray-casting pass over its texel grid (the same `ray_triangle_aligned_2d`
 primitive the sign kernels use). One pass per axis yields BOTH opposing
 faces (nearest hit = the face seen from the negative side, farthest = the

@@ -1,6 +1,6 @@
 """Offline raymarch renderer: sphere-trace an SDF grid to an image.
 
-The TPU-native analog of the client's raymarch pass + shading
+The array analog of the client's raymarch pass + shading
 (`mesh_to_sdf_client/src/passes/raymarch_pass.rs`,
 `shaders/draw_raymarching.wgsl:202-357`): instead of a per-fragment GPU loop,
 every pixel is a lane of a fixed-iteration vectorized trace (static shapes,

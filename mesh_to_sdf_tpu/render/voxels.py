@@ -1,6 +1,6 @@
 """True voxel rendering: exact ray-cast of the iso-band cell cubes.
 
-The TPU-native analog of the client's instanced-cube voxel pass
+The array analog of the client's instanced-cube voxel pass
 (`mesh_to_sdf_client/src/passes/voxel_render_pass.rs:280-310`,
 `shaders/draw_voxels.wgsl:100-227`): the GPU rasterizes one cube per
 ordered-index cell inside ``iso ± cell_width``; here every pixel ray walks

@@ -50,7 +50,7 @@ def _as_index_array(indices) -> Optional[np.ndarray]:
 def as_points(vertices) -> np.ndarray:
     """Adapt any (N, 3) array-like of vertex positions to float32 numpy.
 
-    The TPU analog of the reference ``Point`` trait (`point.rs:21-142`): rather
+    The array analog of the reference ``Point`` trait (`point.rs:21-142`): rather
     than per-math-library impls, we accept anything ``np.asarray`` understands
     plus torch tensors (via ``.numpy()``) and transparently reshape flat
     ``(3N,)`` buffers.

@@ -1,18 +1,18 @@
-"""Core enums and constants for the TPU-native mesh→SDF framework.
+"""Core enums and constants for the mesh→SDF framework.
 
 Capability parity targets (reference: Azkellas/mesh_to_sdf):
 - ``SignMethod`` mirrors `mesh_to_sdf/src/lib.rs:204-216`.
-- ``AccelerationMethod`` mirrors `mesh_to_sdf/src/lib.rs:224-239`, but on TPU the
-  acceleration choice collapses to *kernel strategy* selection (trees lose to
-  tiles on a systolic/vector machine):
+- ``AccelerationMethod`` mirrors `mesh_to_sdf/src/lib.rs:224-239`, but here the
+  acceleration choice collapses to *engine strategy* selection (dense tiles
+  and culled blocks instead of per-query tree traversal):
 
   ============================  =====================================================
-  reference                     TPU-native strategy
+  reference                     strategy here
   ============================  =====================================================
   ``None(sign)``                ``Strategy.XLA`` — fused XLA brute force (scan over
                                 triangle blocks)
-  ``Bvh(sign)``                 ``Strategy.PALLAS`` — tiled Pallas kernel, VMEM-resident
-                                triangle blocks
+  ``Bvh(sign)``                 ``Strategy.PALLAS`` — fused Triton kernel (GPU only;
+                                raises elsewhere)
   ``Rtree`` (normal sign only)  ``Strategy.CULLED`` + ``SignMethod.NORMAL``
   ``RtreeBvh`` (raycast)        ``Strategy.CULLED`` + ``SignMethod.RAYCAST`` (default)
   ============================  =====================================================
@@ -43,24 +43,25 @@ class SignMethod(enum.Enum):
 
 
 class Strategy(enum.Enum):
-    """Kernel strategy (the TPU-native analog of acceleration structures)."""
+    """Engine strategy (the array analog of acceleration structures)."""
 
     #: Pure-XLA brute force: scan over triangle blocks, keyed-min reduce.
     XLA = "xla"
-    #: Tiled Pallas kernel: query/cell tiles × triangle blocks in VMEM.
+    #: Fused Pallas kernel (Triton route, GPU only): each program walks the
+    #: whole soup for one query tile with the running minimum in registers.
     PALLAS = "pallas"
     #: Two-phase tile culling: coarse tile→triangle candidate selection (top-K
     #: by conservative bound), then exact dense min over candidates.
     CULLED = "culled"
     #: Closest-point transform (grids only): seed from triangle AABB windows,
     #: then directional sweeps carrying nearest-triangle state — O(cells+tris),
-    #: the TPU redesign of the reference's preheap+BFS flagship
+    #: the array redesign of the reference's preheap+BFS flagship
     #: (`generate/grid.rs:234-264`). Same guarantee class as the reference:
     #: exact re-evaluation over propagated candidates (tests assert: never
     #: undershoots, exact within 1.5 cells of the surface, ≤2% relative
     #: deviation far-field).
     CPT = "cpt"
-    #: Pick automatically based on problem size and backend.
+    #: Pick automatically based on problem size and platform.
     AUTO = "auto"
 
 

@@ -1,6 +1,6 @@
 // mesh_to_sdf_tpu native runtime components (C ABI, loaded via ctypes).
 //
-// The reference is 100% native (Rust). The TPU compute path here is
+// The reference is 100% native (Rust). The device compute path here is
 // JAX/Pallas; this library provides the native host-side runtime around it:
 //   - GLB container framing + glTF accessor decoding (the data-loader core,
 //     ≙ mesh_to_sdf_client/src/gltf's vendored parallel loader),
@@ -184,7 +184,7 @@ void m2s_argsort_u64(const uint64_t* keys, uint64_t n, uint32_t* out_perm) {
 // build_seed_bins: a cell with c candidates occupies ceil(c/k) consecutive
 // rows; empty slots = T; padding rows' cell = N; rows padded to a power of
 // two (>= 8). The entry table is K-MAJOR: entry[(col, row)] with shape
-// (k, R_pad) — the long row axis must be TPU-tile-minor (see SeedBins).
+// (k, R_pad) — the long row axis is minor (see SeedBins).
 namespace {
 std::vector<int32_t> g_bins_entry;
 std::vector<int32_t> g_bins_rows;

@@ -150,7 +150,7 @@ def test_cpt_grid_gradients_fd():
 
     v, f = make_icosphere(subdiv=1)
     g = Grid.from_bounding_box([-1.4] * 3, [1.4] * 3, [10] * 3)
-    fn = autodiff.make_cpt_grid_distance(g, f, v, use_pallas=False)
+    fn = autodiff.make_cpt_grid_distance(g, f, v)
     vj = jnp.asarray(v)
 
     def loss(vv):
@@ -305,7 +305,7 @@ def test_binned_seeds_empty_and_giant():
     want = np.abs(centers[..., 2])
     seeded = d1 < 1e30
     assert seeded[:, :, 1:5].all() and not seeded[:, :, 0].any()
-    # Tolerance: the algebraic plane-form distance (pallas_sweep._pt_dist)
+    # Tolerance: the algebraic plane-form distance (cpt._pt_dist)
     # loses ~1e-4 relative on huge-coordinate triangles.
     np.testing.assert_allclose(d1[seeded], want[seeded], rtol=5e-4, atol=5e-5)
 

@@ -219,7 +219,7 @@ def test_render_with_material(colored_box):
 
 def test_cubemap_odd_resolution(colored_box):
     """res² not a multiple of TEXEL_CHUNK (e.g. res=100) must not raise —
-    the texel chunking pads and slices back (ADVICE r2)."""
+    the texel chunking pads and slices back."""
     v, f, colors = colored_box
     cm = generate_cubemap(v, f, colors, res=100)
     assert cm.albedo.shape == (6, 100, 100, 3)

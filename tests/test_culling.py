@@ -11,7 +11,7 @@ import pytest
 
 import mesh_to_sdf_tpu as m
 from mesh_to_sdf_tpu import Grid, SignMethod, Strategy, Topology
-from mesh_to_sdf_tpu.ops import culling
+from mesh_to_sdf_tpu.ops import block_index, culling
 from mesh_to_sdf_tpu.query import prepare_triangles
 
 from baselines import make_icosphere
@@ -246,63 +246,13 @@ def test_query_culled_with_sign_grid(big_sphere, rng):
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
 
 
-def test_block_culled_kernel_matches_brute(big_sphere, rng):
-    """Scalar-prefetch block kernel (interpret mode): exact distances where
-    no tile overflows; overflowed tiles flagged for dense recompute."""
-    from mesh_to_sdf_tpu.ops import brute
-    from mesh_to_sdf_tpu.ops.kernels import pallas_culled
-
+def test_query_culled_block_path_end_to_end(big_sphere, rng):
+    """query_sdf_culled with a block index == the exact engine: the
+    gathered per-sub-tile pass (distance + anchor-segment sign), its widened
+    retry and the dense fix-up of certificate-flagged queries."""
     verts, faces = big_sphere
     ta, tb, tc, valid, n = _tris(verts, faces)
-    # Slice to a count NOT divisible by TB: exercises the pad-row planes
-    # (a historical bug computed edge planes from padded vertices → inf).
-    n = n - 7
-    ta, tb, tc = ta[:n], tb[:n], tc[:n]
-    valid = valid[:n]
-    bi = pallas_culled.build_block_index(
-        np.asarray(ta), np.asarray(tb), np.asarray(tc)
-    )
-    assert bi.n_blocks == (n + pallas_culled.TB - 1) // pallas_culled.TB
-
-    # Clustered queries → tight Morton tiles → few candidate blocks (the
-    # regime the kernel exists for); scattered tiles overflow and are
-    # flagged instead.
-    centers = rng.uniform(-1.2, 1.2, (12, 3)).astype(np.float32)
-    q = (centers[:, None, :]
-         + rng.normal(0, 0.03, (12, 128, 3)).astype(np.float32)
-         ).reshape(-1, 3)
-    q = jnp.asarray(q)
-    dist, q_ovf = culling._culled_blocks_impl(
-        q, bi, qt=128, st=64, nb_sub=8, nb_table=16, interpret=True
-    )
-    ta_p, tb_p, tc_p, valid_p, blk = brute.pad_tri_blocks(
-        ta, tb, tc, valid, 512
-    )
-    want = np.asarray(
-        brute.sdf_brute(
-            q, ta_p, tb_p, tc_p, valid_p, sign_method=SignMethod.RAYCAST,
-            raycast_axes=0, tri_block=blk, query_chunk=q.shape[0],
-        )
-    )
-    ok = ~np.asarray(q_ovf)
-    assert ok.any(), "clustered tiles should fit the candidate budget"
-    np.testing.assert_allclose(
-        np.asarray(dist)[ok], want[ok], rtol=2e-4, atol=1e-5
-    )
-
-
-@pytest.mark.parametrize("engine", ["gather", "union"])
-def test_query_culled_block_path_end_to_end(big_sphere, rng, engine,
-                                            monkeypatch):
-    """query_sdf_culled with a block index == the exact engine (overflowed
-    tiles recomputed densely; sign via grid transfer) — both the gathered
-    per-sub-tile engine (default) and the per-tile-union kernel path."""
-    from mesh_to_sdf_tpu.ops.kernels import pallas_culled
-
-    monkeypatch.setenv("M2S_CULLED_ENGINE", engine)
-    verts, faces = big_sphere
-    ta, tb, tc, valid, n = _tris(verts, faces)
-    bi = pallas_culled.build_block_index(
+    bi = block_index.build_block_index(
         np.asarray(ta[:n]), np.asarray(tb[:n]), np.asarray(tc[:n])
     )
     sg = culling.build_sign_grid(ta, tb, tc, valid, res=24)
@@ -310,7 +260,7 @@ def test_query_culled_block_path_end_to_end(big_sphere, rng, engine,
     got = np.asarray(
         culling.query_sdf_culled(
             q, ta, tb, tc, valid, sign_method=SignMethod.RAYCAST,
-            sign_grid=sg, block_index=bi,
+            sign_grid=sg, block_index=bi, st=32,
         )
     )
     topo = Topology.triangle_list(faces.reshape(-1))
@@ -319,19 +269,34 @@ def test_query_culled_block_path_end_to_end(big_sphere, rng, engine,
                        sign_method=SignMethod.RAYCAST)
     )
     np.testing.assert_allclose(got, want, rtol=2e-4, atol=1e-5)
+    assert culling.LAST_CULLED_STATS["queries"] == 1500
+
+
+def test_query_culled_public_api_builds_block_index(big_sphere, rng):
+    """generate_sdf(Strategy.CULLED) on the CPU: at ≥ SIGN_GRID_MIN_QUERIES
+    queries it builds the sign grid and the Morton block index on every
+    backend and runs the gathered pass — equal to the exact engine."""
+    from mesh_to_sdf_tpu import query
+
+    verts, faces = big_sphere
+    topo = Topology.triangle_list(faces.reshape(-1))
+    q = rng.uniform(-1.3, 1.3, (query.SIGN_GRID_MIN_QUERIES, 3)).astype(
+        np.float32)
+    culling.LAST_CULLED_STATS.clear()
+    got = np.asarray(m.generate_sdf(verts, topo, q, Strategy.CULLED))
+    assert culling.LAST_CULLED_STATS["tris"] == len(faces)
+    want = np.asarray(m.generate_sdf(verts, topo, q, Strategy.XLA))
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=1e-5)
 
 
 def test_route_cache_self_tunes_and_stays_exact(big_sphere, rng):
-    """The fused path records its measured work fraction per (mesh-shape,
-    batch) and reroutes repeat calls to the fused brute kernel when culling
-    cannot pay (small batches over few blocks → tile unions hold most of
-    the soup). Both engines are exact, so the reroute must be invisible in
-    the results."""
-    from mesh_to_sdf_tpu.ops.kernels import pallas_culled
-
+    """The gathered path records its measured work fraction per (mesh-shape,
+    batch) and reroutes repeat calls to the dense engine when culling
+    cannot pay (small batches over few blocks). Both engines are exact, so
+    the reroute must be invisible in the results."""
     verts, faces = big_sphere
     ta, tb, tc, valid, n = _tris(verts, faces)
-    bi = pallas_culled.build_block_index(
+    bi = block_index.build_block_index(
         np.asarray(ta[:n]), np.asarray(tb[:n]), np.asarray(tc[:n])
     )
     sg = culling.build_sign_grid(ta, tb, tc, valid, res=24)
@@ -341,8 +306,8 @@ def test_route_cache_self_tunes_and_stays_exact(big_sphere, rng):
     first = np.asarray(culling.query_sdf_culled(q, ta, tb, tc, valid, **kw))
     key = culling._route_key(bi, q.shape[0])
     assert key in culling._ROUTE_CACHE  # decision recorded
-    # 5120 tris in 20 blocks, 1200 scattered queries in 2 tiles: unions
-    # hold nearly every block — culling cannot pay here.
+    # 5120 tris in 20 blocks ≤ DEFAULT_KG: every sub-tile evaluates every
+    # block — culling cannot pay here.
     assert culling._ROUTE_CACHE[key] is True
     second = np.asarray(culling.query_sdf_culled(q, ta, tb, tc, valid, **kw))
     np.testing.assert_allclose(second, first, rtol=2e-4, atol=5e-5)
@@ -359,12 +324,10 @@ def test_phase_a_hier_bounds_are_sound(big_sphere, monkeypatch):
     """Hierarchical phase A (coarse AABB → fine csphere): every returned
     bound must be a true lower bound on the exact center→block triangle
     distance, and lb_rest must lower-bound every block outside the window."""
-    from mesh_to_sdf_tpu.ops.kernels import pallas_culled
-
     verts, faces = big_sphere
     ta, tb, tc, valid, n = _tris(verts, faces)
     ta, tb, tc = np.asarray(ta[:n]), np.asarray(tb[:n]), np.asarray(tc[:n])
-    bi = pallas_culled.build_block_index(ta, tb, tc)
+    bi = block_index.build_block_index(ta, tb, tc)
     B, tbk = bi.n_blocks, bi.tb
     assert B == 20
 
@@ -372,7 +335,7 @@ def test_phase_a_hier_bounds_are_sound(big_sphere, monkeypatch):
         [[0.0, 0.0, 0.0], [1.0, 0.2, -0.3], [2.5, 2.5, 2.5]], jnp.float32
     )
     c = 6
-    lb_c, idx_c, lb_rest = pallas_culled._phase_a_hier(centers, bi, c=c)
+    lb_c, idx_c, lb_rest = block_index._phase_a_hier(centers, bi, c=c)
     lb_c, idx_c, lb_rest = map(np.asarray, (lb_c, idx_c, lb_rest))
     assert lb_c.shape == (3, c) and idx_c.shape == (3, c)
     # Sorted ascending.
@@ -382,7 +345,7 @@ def test_phase_a_hier_bounds_are_sound(big_sphere, monkeypatch):
     # build_block_index Morton-sorts, so read the SORTED soup back from the
     # packed planes (pad triangles have a == PAD_COORD).
     from baselines import sdfgen_point_triangle_distance
-    from mesh_to_sdf_tpu.ops.kernels.pallas_sdf import PAD_COORD
+    from mesh_to_sdf_tpu.ops.block_index import PAD_COORD
 
     p9 = np.asarray(bi.planes9)
     sa, sb, sc = p9[0:3].T, p9[3:6].T, p9[6:9].T
@@ -405,44 +368,33 @@ def test_phase_a_hier_bounds_are_sound(big_sphere, monkeypatch):
 
 
 def test_culled_blocks_hier_path_is_exact(big_sphere, rng, monkeypatch):
-    """Force the hierarchical branch of select_blocks on the 20-block
-    sphere: non-flagged queries must match brute exactly; flagged ones are
-    the caller's dense-recompute responsibility (as in the flat path)."""
-    from mesh_to_sdf_tpu.ops import brute
-    from mesh_to_sdf_tpu.ops.kernels import pallas_culled
-
-    monkeypatch.setattr(pallas_culled, "HIER_MIN_BLOCKS", 8)
-    monkeypatch.setattr(pallas_culled, "HIER_C", 6)
+    """Force the hierarchical phase A of the gathered pass on the 20-block
+    sphere (kg=4, window 6 ⇒ B > 2·window): non-flagged queries must match
+    brute force exactly; flagged ones are the caller's dense-recompute
+    responsibility."""
+    monkeypatch.setattr(block_index, "HIER_C", 6)
 
     verts, faces = big_sphere
     ta, tb, tc, valid, n = _tris(verts, faces)
-    ta, tb, tc, valid = ta[:n], tb[:n], tc[:n], valid[:n]
-    bi = pallas_culled.build_block_index(
-        np.asarray(ta), np.asarray(tb), np.asarray(tc)
+    bi = block_index.build_block_index(
+        np.asarray(ta[:n]), np.asarray(tb[:n]), np.asarray(tc[:n])
     )
-    assert bi.n_blocks >= max(8, 2 * 6)  # hier branch active
+    assert bi.n_blocks > 2 * max(4 + 1, 6)  # hier branch active
+    sg = culling.build_sign_grid(ta, tb, tc, valid, res=24)
 
     centers = rng.uniform(-1.2, 1.2, (10, 3)).astype(np.float32)
     q = (centers[:, None, :]
          + rng.normal(0, 0.03, (10, 128, 3)).astype(np.float32)
          ).reshape(-1, 3)
-    q = jnp.asarray(q)
-    # Distinct (qt, st, nb) from the flat-path test → a fresh jit trace
-    # that reads the monkeypatched globals.
-    dist, q_ovf = culling._culled_blocks_impl(
-        q, bi, qt=128, st=32, nb_sub=6, nb_table=24, interpret=True
+    # kg=4 is unique to this test → a fresh trace that reads the patch.
+    signed, flag, _ = culling._culled_gather_signed_impl(
+        jnp.asarray(q), bi, sg.inside, sg.grid, st=32, kg=4,
     )
-    ta_p, tb_p, tc_p, valid_p, blk = brute.pad_tri_blocks(
-        ta, tb, tc, valid, 512
-    )
-    want = np.asarray(
-        brute.sdf_brute(
-            q, ta_p, tb_p, tc_p, valid_p, sign_method=SignMethod.RAYCAST,
-            raycast_axes=0, tri_block=blk, query_chunk=q.shape[0],
-        )
-    )
-    ok = ~np.asarray(q_ovf)
-    assert ok.any(), "clustered tiles should pass the hier certificate"
+    want = np.asarray(m.generate_sdf(
+        verts, Topology.triangle_list(faces.reshape(-1)), q, Strategy.XLA,
+        sign_method=SignMethod.RAYCAST))
+    ok = ~np.asarray(flag)
+    assert ok.any(), "clustered sub-tiles should pass the certificate"
     np.testing.assert_allclose(
-        np.asarray(dist)[ok], want[ok], rtol=2e-4, atol=1e-5
+        np.asarray(signed)[ok], want[ok], rtol=2e-4, atol=1e-5
     )

@@ -123,8 +123,8 @@ def test_sharded_asymmetric_grid():
 
 
 def test_sharded_culled_queries_match_exact(setup, rng):
-    """Sharded CULLED (fused block kernel per query shard + replicated
-    index) == the exact single-device engine, including flagged-query
+    """Sharded CULLED (gathered pass per query shard + replicated index)
+    == the exact single-device engine, including flagged-query
     re-routing."""
     from mesh_to_sdf_tpu.parallel.sharding import generate_sdf_sharded_culled
     from mesh_to_sdf_tpu import generate_sdf
@@ -137,31 +137,31 @@ def test_sharded_culled_queries_match_exact(setup, rng):
     want = np.asarray(
         generate_sdf(v, topo, q, Strategy.XLA, sign_method=SignMethod.RAYCAST)
     )
-    # atol 5e-5: the kernel reduces mins over 128-lane rows (different
-    # float association than the XLA chunked reduce) — near-surface cells
-    # sit at |d|~1e-4 where that shows up.
+    # atol 5e-5: the gathered pass uses the plane-form distance (different
+    # float association than the XLA ladder) — near-surface queries sit at
+    # |d|~1e-4 where that shows up.
     np.testing.assert_allclose(got, want, rtol=2e-4, atol=5e-5)
 
 
-def test_sharded_culled_tiny_capacity_still_exact(setup, rng):
-    """Starving the candidate capacity floods the flag path — the sharded
-    brute re-route must keep the result exact."""
+def test_sharded_culled_tiny_capacity_still_exact(setup, rng, monkeypatch):
+    """Starving the candidate capacity (one block per sub-tile, in both
+    gather rounds) floods the flag path — the sharded dense re-route must
+    keep the result exact."""
+    from mesh_to_sdf_tpu.ops import culling
     from mesh_to_sdf_tpu.parallel.sharding import generate_sdf_sharded_culled
     from mesh_to_sdf_tpu import generate_sdf
 
+    monkeypatch.setattr(culling, "DEFAULT_KG", 1)
+    monkeypatch.setattr(culling, "DEFAULT_KG_WIDE", 1)
     v, f, _, _ = setup
     m = pmesh.make_sdf_mesh(cells=8, tris=1)
     q = rng.uniform(-1.4, 1.4, (2048, 3)).astype(np.float32)
-    got = np.asarray(
-        generate_sdf_sharded_culled(v, f, q, m, st=32, nb_sub=1, nb_table=2)
-    )
+    got = np.asarray(generate_sdf_sharded_culled(v, f, q, m, st=32))
     topo = Topology.triangle_list(f.reshape(-1))
     want = np.asarray(
         generate_sdf(v, topo, q, Strategy.XLA, sign_method=SignMethod.RAYCAST)
     )
-    # atol 5e-5 as in test_sharded_culled_queries_match_exact: the brute
-    # re-route reduces mins over 128-lane rows (different float association
-    # than the XLA chunked reduce) — visible on near-surface queries.
+    # atol 5e-5 as in test_sharded_culled_queries_match_exact.
     np.testing.assert_allclose(got, want, rtol=2e-4, atol=5e-5)
 
 

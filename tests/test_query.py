@@ -139,7 +139,7 @@ def test_list_remainder_dropped():
 
 def test_sign_grid_cache_distinguishes_bc_corners():
     """Two meshes sharing corner-0 vertices but different b/c corners must
-    not collide in the content-hashed caches (ADVICE r2, medium)."""
+    not collide in the content-hashed caches."""
     import mesh_to_sdf_tpu as m
     from mesh_to_sdf_tpu import query as qmod
 

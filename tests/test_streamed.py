@@ -48,35 +48,29 @@ def test_streamed_bad_slab(setup):
         generate_grid_sdf_streamed(v, f, g, slab_nx=5)
 
 
-def test_slab_sign_binned_matches_xla(rng):
-    """The per-slab pallas sign with candidate line-bins == the slab-local
-    XLA suffix-parity sign (exercises build_slab_line_bins' common-width
-    padding and the slab-offset footprints, interpret mode)."""
+def test_slab_sign_matches_in_core_parity():
+    """Each slab's sign (all three parities slab-local, x counted as the
+    suffix of hits beyond each cell, including hits past the slab) equals
+    the in-core grid parity restricted to that slab."""
     import jax.numpy as jnp
 
-    from mesh_to_sdf_tpu.gridgen_streamed import (
-        _slab_sign_raycast, build_slab_line_bins,
-    )
+    from mesh_to_sdf_tpu.gridgen_streamed import _slab_sign_raycast
+    from mesh_to_sdf_tpu.ops import raycast
 
     v, f = make_icosphere(subdiv=2)
     oa, ob, oc = v[f[:, 0]], v[f[:, 1]], v[f[:, 2]]
     grid = Grid.from_bounding_box([-1.4] * 3, [1.4] * 3, [16, 12, 12])
-    slab_nx, n_slabs = 4, 4
-    bins = build_slab_line_bins(grid, slab_nx, n_slabs, oa, ob, oc)
-    assert len(bins) == n_slabs
-    # Common table width per axis (one compiled program serves every slab).
-    assert len({b[1].tbl.shape for b in bins}) == 1
-    assert len({b[2].tbl.shape for b in bins}) == 1
-
     orig = jnp.asarray(np.stack([oa, ob, oc]))
+    want = np.asarray(raycast.grid_inside_mask(
+        grid, orig[0], orig[1], orig[2], jnp.ones((len(f),), bool),
+        tri_block=256))
+    slab_nx = 4
     cs = jnp.asarray(grid.cell_size)
-    cell_count = (slab_nx, 12, 12)
     dist = jnp.ones((slab_nx, 12, 12), jnp.float32)
-    for i in range(n_slabs):
+    for i in range(16 // slab_nx):
         fc = jnp.asarray(grid.first_cell) + jnp.asarray(
             [i * slab_nx, 0, 0], jnp.float32) * cs
-        want, _ = _slab_sign_raycast(fc, cs, cell_count, dist, orig, False)
-        got, ovf = _slab_sign_raycast(fc, cs, cell_count, dist, orig, True,
-                                      line_bins=bins[i])
-        assert int(ovf) == 0
-        assert (np.sign(np.asarray(got)) == np.sign(np.asarray(want))).all()
+        got = np.asarray(
+            _slab_sign_raycast(fc, cs, (slab_nx, 12, 12), dist, orig)) < 0
+        np.testing.assert_array_equal(
+            got, want[i * slab_nx:(i + 1) * slab_nx])
